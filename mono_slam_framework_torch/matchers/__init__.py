@@ -1,0 +1,4 @@
+from mono_slam_framework_torch.matchers.base import FeatureMatcher, MatchFramesResult
+from mono_slam_framework_torch.matchers.orb_matcher import OrbFeatureMatcher
+
+__all__ = ["FeatureMatcher", "MatchFramesResult", "OrbFeatureMatcher"]
