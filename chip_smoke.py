@@ -18,13 +18,25 @@ line and raises if it fails:
                 2000 features, 8 local keyframes and tables of 1024, on a map
                 seeded from the simulator's geometry; checks launch counts,
                 poses against ground truth and against the same drive with
-                both kernels replaced by their plain versions, and times it.
+                both kernels replaced by their plain versions, and times it;
+  7. kernel_times — B1 and B2 alone against their plain versions;
+  8. b1_per_level — the one-level launches of B1 (the Hopper form of the
+                JAX package's per-level B1-banded / B1-full kernels) against
+                level_maps_plain at every level of a 640x480 and a 240x320
+                view, orb.extract(per_level=True) against the one-launch
+                extract feature for feature, and the per-level path's launch
+                counts and times;
+  9. system   — System.track_monocular (two-view initialization, tracking,
+                local mapping with BA, loop detection) over 42 frames at
+                640x480 and 2000 features, 12 warm then 30 timed: frames/s,
+                latency, stage split, launches, ATE; then the same drive with
+                both kernels replaced by their plain versions.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 
-The world seeding (`seed_map`) and the drive (`drive`) take a device and a
-size, so the CPU tests run them at a small size.
+The world seeding (`seed_map`), the drives (`drive`, `run_system`) and the
+checks take a device and a size, so the CPU tests run them at a small size.
 """
 
 from __future__ import annotations
@@ -47,9 +59,15 @@ import torch  # noqa: E402
 
 from mono_slam_framework_torch import _kernels, convert, sim  # noqa: E402
 from mono_slam_framework_torch.geometry import se3  # noqa: E402
+from mono_slam_framework_torch.io import trajectory  # noqa: E402
+from mono_slam_framework_torch.matchers import OrbFeatureMatcher  # noqa: E402
 from mono_slam_framework_torch.ops import detect, orb  # noqa: E402
 from mono_slam_framework_torch.optim import pose_opt, pose_opt_cuda  # noqa: E402
+from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
+from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System  # noqa: E402
 from mono_slam_framework_torch.slam import fused_tracking  # noqa: E402
+from mono_slam_framework_torch.slam.frame import reset_frame_ids  # noqa: E402
+from mono_slam_framework_torch.slam.map_model import reset_map_ids  # noqa: E402
 
 RATIO = 0.7
 FAST_THRESHOLD = 20.0
@@ -382,6 +400,248 @@ def check_extract(img: np.ndarray, device, max_features: int):
             "identical_desc_share": same, "max_desc_bits": worst}
 
 
+# ---------------------------------------------------------------------------
+# the per-level detection path (B1-banded / B1-full)
+
+
+def check_b1_per_level(img: np.ndarray, device):
+    """One B1 launch per pyramid level at the level's own width against
+    level_maps_plain on the same level, on interior pixels, with check_b1's
+    tolerances and no NMS flip allowed. Returns the phase record."""
+    dims = orb._level_dims(*img.shape)
+    row0, _, _ = detect.level_layout(dims)
+    stack = orb.pyramid(torch.from_numpy(img).to(device))
+    tol = {"score": (1e-5, 1e-2), "m10": (1e-4, 2.0), "m01": (1e-4, 2.0),
+           "blur": (1e-5, 1e-3), "harris": (5e-4, 1.0)}
+    flips = n_interior = 0
+    max_err = {k: 0.0 for k in tol}
+    failures = []
+    forms = []
+    for lvl, ((h, w), r) in enumerate(zip(dims, row0)):
+        level = stack[r: r + h, :w].contiguous()
+        got = [m.cpu().numpy() for m in detect.detect_level_cuda(level, FAST_THRESHOLD, orb.BORDER)]
+        ref = [m.cpu().numpy() for m in detect.level_maps_plain(level, FAST_THRESHOLD, orb.BORDER)]
+        forms.append("full" if h <= detect.FULL_MAX_ROWS else "banded")
+        m = np.zeros((h, w), bool)
+        m[orb.BORDER: h - orb.BORDER, orb.BORDER: w - orb.BORDER] = True
+        n_interior += int(m.sum())
+        flips += int((np.isfinite(got[0]) != np.isfinite(ref[0]))[m].sum())
+        for i, name in enumerate(tol):
+            g, rf = got[i][m], ref[i][m]
+            fin = np.isfinite(g) & np.isfinite(rf)
+            rtol, atol = tol[name]
+            bad = int((np.abs(g[fin] - rf[fin]) > atol + rtol * np.abs(rf[fin])).sum())
+            if bad:
+                failures.append(f"{name} level {lvl} ({h}x{w}): {bad} pixels off")
+            if fin.any():
+                max_err[name] = max(max_err[name], float(np.abs(g[fin] - rf[fin]).max()))
+    rec = {"size": list(img.shape), "levels": [list(d) for d in dims], "forms": forms,
+           "score_flips": flips, "interior_px": n_interior, "max_abs_err": max_err}
+    if failures or flips:
+        raise AssertionError(f"one-level B1 differs from level_maps_plain: {failures} {rec}")
+    return rec
+
+
+def check_extract_per_level(img: np.ndarray, device, max_features: int):
+    """orb.extract(per_level=True) gives the one-launch extract's Features,
+    every field equal (the maps agree wherever a feature reads them)."""
+    t = torch.from_numpy(img).to(device)
+    one = orb.extract(t, max_features, FAST_THRESHOLD)
+    per = orb.extract(t, max_features, FAST_THRESHOLD, per_level=True)
+    diff = [name for name, a, b in zip(orb.Features._fields, one, per) if not torch.equal(a, b)]
+    if diff:
+        raise AssertionError(f"extract(per_level=True) differs from extract() in {diff}")
+    return int(one.valid.sum())
+
+
+# Operation counts of B1 per level pixel, from the plain version's separable
+# passes (a tap = multiply + add = 2): FAST 16 ring differences both ways and
+# their comparisons 64; Sobel x/y 2 x 6 taps 24; the 3 gradient products 3;
+# the 7x7 box over 3 products 3 x 14 taps 84; Harris det - k tr^2 6; 3x3 NMS
+# 9; moments box + ramp 2 x 62 taps 248; 7x7 Gaussian 14 taps 28.
+B1_OPS_PER_PIXEL = 64 + 24 + 3 + 84 + 6 + 9 + 248 + 28
+# B2 per edge and pass: transform 15, projection 8, residual and weighted
+# chi2 6, Huber 4, the 2x6 Jacobian 36, J^T W J upper triangle 21 x 2 x 2 =
+# 84, J^T W r 24; and the passes: 4 rounds x (1 + 10 trial) + 4
+# reclassifications.
+B2_OPS_PER_EDGE_PASS = 15 + 8 + 6 + 4 + 36 + 84 + 24
+B2_EDGE_PASSES = 4 * 11 + 4
+# H100 SXM data sheet, at the card's full 700 W limit
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the f32 operations over the peak rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b1_bound(dims, stacked: bool):
+    """B1's bound over levels `dims`: one stacked launch reads the
+    [rows, w0] stack and writes 5 maps of it; one-level launches read and
+    write each level at its own size. Operations count real pixels."""
+    px = sum(h * w for h, w in dims)
+    _, rows, w0 = detect.level_layout(tuple(dims))
+    n_bytes = 4 * 6 * (rows * w0 if stacked else px)
+    return bound_ms(n_bytes, B1_OPS_PER_PIXEL * px)
+
+
+def b2_bound(n_edges: int):
+    """B2's bound for one problem of n_edges: inputs Xw, uv, valid, info
+    (7 f32 per edge), T and K; outputs T and one inlier flag per edge."""
+    n_bytes = 4 * (7 * n_edges + 16 + 4) + 4 * (16 + n_edges)
+    return bound_ms(n_bytes, B2_OPS_PER_EDGE_PASS * B2_EDGE_PASSES * n_edges)
+
+
+# ---------------------------------------------------------------------------
+# the System: two-view initialization, tracking, local mapping with BA
+
+
+class SystemConfig(NamedTuple):
+    h: int
+    w: int
+    f: float
+    max_features: int
+    n_warm: int  # frames before the timed window (initialization inside)
+    n_timed: int
+    step: float  # lateral_trajectory step
+
+
+# bench.py::_bench_system(fused=False): the repo's system operating point
+SYSTEM_FULL = SystemConfig(480, 640, 500.0, 2000, 12, 30, 0.02)
+# tests/test_pipeline.py's 28-frame sequence, for the CPU tests
+SYSTEM_SMALL = SystemConfig(240, 320, 250.0, 400, 4, 24, 0.07)
+
+# Bounds of the SYSTEM_FULL drive: three times the worst of the same drive
+# run with the plain versions on a CPU (tools/torch_profile_system.py
+# --device cpu, on the H100 machine's host: scale-aligned keyframe ATE
+# 0.004149 over 3 keyframes, live-pose ATE 0.005103 over 38 frames,
+# initialized on frame 4, never lost).
+MAX_SYSTEM_KF_ATE = 3 * 0.004149
+MAX_SYSTEM_FRAME_ATE = 3 * 0.005103
+
+
+def render_system(cfg: SystemConfig):
+    """(world, ground-truth poses, images) of the system drive, rendered
+    before any timing."""
+    world = sim.PlaneWorld(width=cfg.w, height=cfg.h, f=cfg.f, second_plane=(3.0, 0.3))
+    poses = sim.lateral_trajectory(cfg.n_warm + cfg.n_timed, step=cfg.step)
+    return world, poses, [world.render(T) for T in poses]
+
+
+def build_system(device, cfg: SystemConfig, world) -> System:
+    """bench.py's reference-twin System (fusedTracking=False) on `device`."""
+    reset_frame_ids()
+    reset_map_ids()
+    params = SlamParameters(
+        fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
+        max_features=cfg.max_features, minIniMatchCount=100,
+        initializerModelFallback=True, fusedTracking=False,
+    )
+    matcher = OrbFeatureMatcher(threshold=RATIO, max_features=cfg.max_features,
+                                device=device)
+    return System(params, matcher, KeyFrameMatchDatabase(matcher), verbose=False,
+                  device=device)
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def run_system(device, cfg: SystemConfig, world, poses, images, system=None) -> dict:
+    """Drive System.track_monocular over every image (gate toggled), timing
+    the frames after cfg.n_warm (synchronized on a card). Returns the
+    drive's record: states, live poses, latency, stage split, launches, ATE."""
+    system = system or build_system(device, cfg, world)
+    system.toggle_initialization_allowed()
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *_: None)
+    detect.detect_maps_cuda.launches = 0
+    pose_opt_cuda.pose_lm_batched.launches = 0
+    states, Tcw, frame_ms, kf_event_ms = [], [], [], []
+    n_kf_before = 0
+    t_timed = 0.0
+    for i, img in enumerate(images):
+        if i == cfg.n_warm:
+            system.timer.reset()
+            n_kf_before = system.map.n_keyframes()
+        t0 = time.perf_counter()
+        system.track_monocular(img, timestamp=i * 0.1)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        states.append(system.tracker.state.name)
+        T = system.tracker.current_frame.get_pose()
+        Tcw.append(np.full((4, 4), np.nan, np.float32) if T is None else T)
+        if i >= cfg.n_warm:
+            t_timed += ms
+            frame_ms.append(ms)
+            n_kf = system.map.n_keyframes()
+            if n_kf != n_kf_before:
+                kf_event_ms.append(ms)
+                n_kf_before = n_kf
+    launches = {"b1": detect.detect_maps_cuda.launches,
+                "b2": pose_opt_cuda.pose_lm_batched.launches}
+
+    gt_t = np.arange(len(images)) * 0.1
+    gt_p = np.stack([-(T[:3, :3].T @ T[:3, 3]) for T in poses])
+    kfs = sorted((kf for kf in system.map.all_keyframes() if not kf.is_bad),
+                 key=lambda kf: kf.id)
+    ate_kf, n_kf_assoc = trajectory.ate_rmse(
+        np.array([kf.timestamp for kf in kfs]),
+        np.stack([kf.get_camera_center() for kf in kfs]) if kfs else np.zeros((0, 3)),
+        gt_t, gt_p,
+    )
+    Tcw = np.stack(Tcw)
+    posed = ~np.isnan(Tcw[:, 0, 0])
+    centres = -np.einsum("nji,nj->ni", Tcw[:, :3, :3], Tcw[:, :3, 3])
+    ate_frames, _ = trajectory.ate_rmse(gt_t[posed], centres[posed], gt_t, gt_p)
+    first_ok = states.index("OK") if "OK" in states else None
+    n_timed = len(frame_ms)
+    return {
+        "frames": len(images), "size": [cfg.h, cfg.w], "max_features": cfg.max_features,
+        "states": states, "Tcw": Tcw,
+        "first_ok_frame": first_ok,
+        "not_ok_after_first_ok": None if first_ok is None else sum(
+            s != "OK" for s in states[first_ok:]),
+        "lost_frames": states.count("LOST"),
+        "keyframes": system.map.n_keyframes(), "map_points": system.map.n_map_points(),
+        "ate_kf": ate_kf, "ate_kf_assoc": n_kf_assoc, "ate_frames": ate_frames,
+        "timed_frames": n_timed,
+        "fps": n_timed / (t_timed / 1e3) if n_timed else None,
+        "frame_p50_ms": _pct(frame_ms, 50), "frame_p95_ms": _pct(frame_ms, 95),
+        "kf_events": len(kf_event_ms), "kf_event_p95_ms": _pct(kf_event_ms, 95),
+        "stage_ms_per_frame": {k: 1e3 * v / max(n_timed, 1)
+                               for k, v in system.timer.totals.items()},
+        "launches": launches,
+        "system": system,
+    }
+
+
+def check_system_run(run: dict, kernels: bool) -> None:
+    """The system drive's bounds: it initializes, never loses track (so
+    never reaches relocalization), keeps both ATEs within MAX_SYSTEM_*_ATE,
+    and, for the drive through the kernels, launches B1 once per new frame
+    and B2 at least once per tracked frame."""
+    if run["first_ok_frame"] is None:
+        raise AssertionError("the System never initialized")
+    if run["lost_frames"] or run["not_ok_after_first_ok"]:
+        raise AssertionError(f"tracking was lost: {run['states']}")
+    n_tracked = run["frames"] - run["first_ok_frame"] - 1
+    if kernels:
+        if run["launches"]["b1"] != run["frames"] or run["launches"]["b2"] < n_tracked:
+            raise AssertionError(f"launches {run['launches']} over {run['frames']} frames, "
+                                 f"{n_tracked} tracked")
+    if not (run["ate_kf"] <= MAX_SYSTEM_KF_ATE and run["ate_frames"] <= MAX_SYSTEM_FRAME_ATE):
+        raise AssertionError(f"ATE keyframes {run['ate_kf']}, frames {run['ate_frames']}")
+
+
+def system_record(run: dict) -> dict:
+    """run_system's record without the objects, for printing."""
+    return {k: v for k, v in run.items() if k not in ("Tcw", "system", "states")}
+
+
 def _print(rec):
     print(json.dumps(rec), flush=True)
 
@@ -461,17 +721,95 @@ def main() -> int:
     _print({"phase": "kernel_times", "runs": 20, "b1_ms": b1_ms, "b1_plain_ms": b1_plain_ms,
             "b2_ms": b2_ms, "b2_plain_ms": b2_plain_ms})
 
+    # ---- the per-level detection path: B1-banded and B1-full ----
+    small = render(SMALL._replace(n_frames=1))[2][0]  # a 240x320 view
+    lvl_full = check_b1_per_level(images[0], dev)
+    lvl_small = check_b1_per_level(small, dev)
+    n_feat = [check_extract_per_level(images[0], dev, cfg.max_features),
+              check_extract_per_level(small, dev, SMALL.max_features)]
+    views = [(images[i], cfg.max_features) for i in range(cfg.n_kf, cfg.n_kf + cfg.n_frames)]
+    views.append((small, SMALL.max_features))
+    detect.detect_level_cuda.launches = {"banded": 0, "full": 0}
+    for img, k in views:
+        orb.extract(torch.from_numpy(img).to(dev), k, FAST_THRESHOLD, per_level=True)
+    torch.cuda.synchronize(dev)
+    per_level_launches = dict(detect.detect_level_cuda.launches)
+    want = {"banded": 8 * cfg.n_frames + 5, "full": 3}
+    if per_level_launches != want:
+        raise AssertionError(f"per-level launches {per_level_launches}, expected {want}")
+
+    def levels_of(img):
+        dims = orb._level_dims(*img.shape)
+        row0, _, _ = detect.level_layout(dims)
+        st = orb.pyramid(torch.from_numpy(img).to(dev))
+        return [st[r: r + h, :w].contiguous() for (h, w), r in zip(dims, row0)]
+
+    def run_levels(fn, levels):
+        return lambda: [fn(lv, FAST_THRESHOLD, orb.BORDER) for lv in levels]
+
+    banded_levels = levels_of(images[cfg.n_kf])  # all 8 levels of 640x480: > 96 rows
+    full_levels = [lv for lv in levels_of(small) if lv.shape[0] <= detect.FULL_MAX_ROWS]
+    banded_ms = _cuda_ms(run_levels(detect.detect_level_cuda, banded_levels))
+    banded_plain_ms = _cuda_ms(run_levels(detect.level_maps_plain, banded_levels))
+    full_ms = _cuda_ms(run_levels(detect.detect_level_cuda, full_levels))
+    full_plain_ms = _cuda_ms(run_levels(detect.level_maps_plain, full_levels))
+    banded_dims = [tuple(lv.shape) for lv in banded_levels]
+    full_dims = [tuple(lv.shape) for lv in full_levels]
+    _print({"phase": "b1_per_level", "views": [lvl_full, lvl_small],
+            "extract_equal_keypoints": n_feat, "launches": per_level_launches,
+            "runs": 20, "one_level_launches_640x480_ms": banded_ms,
+            "one_launch_640x480_ms": b1_ms,
+            "one_level_launches_640x480_plain_ms": banded_plain_ms,
+            "full_levels_240x320": [list(d) for d in full_dims],
+            "full_levels_ms": full_ms, "full_levels_plain_ms": full_plain_ms})
+
+    # ---- the System: initialization, tracking, local mapping with BA ----
+    sys_cfg = SYSTEM_FULL
+    world_s, poses_s, images_s = render_system(sys_cfg)  # before any timing
+    run = run_system(dev, sys_cfg, world_s, poses_s, images_s)
+    with plain_kernels():
+        plain_run = run_system(dev, sys_cfg, world_s, poses_s, images_s)
+    both = ~np.isnan(run["Tcw"][:, 0, 0]) & ~np.isnan(plain_run["Tcw"][:, 0, 0])
+    pose_diff = np.abs(run["Tcw"][both] - plain_run["Tcw"][both]).max(axis=(1, 2))
+    rec = {"phase": "system", **system_record(run),
+           "plain": system_record(plain_run),
+           "plain_pose_max_abs_diff_per_frame": pose_diff.tolist()}
+    _print(rec)
+    check_system_run(run, kernels=True)
+    check_system_run(plain_run, kernels=False)
+
+    b1_stack_bound = b1_bound(dims, stacked=True)
+    banded_bound = b1_bound(banded_dims, stacked=False)
+    full_bound = b1_bound(full_dims, stacked=False)
+    b2_b = b2_bound(len(pose_problem()[1]))
     _print({"kernels": [
         {"name": "detect_maps", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
-         "launches": n_b1, "max_abs_err": max(b1["max_abs_err"].values()),
-         "ms": b1_ms, "plain_ms": b1_plain_ms},
+         "launches": n_b1 + run["launches"]["b1"],
+         "max_abs_err": max(b1["max_abs_err"].values()),
+         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_stack_bound[0],
+         "bound_by": b1_stack_bound[1], "library_ms": None},
+        {"name": "detect_level (B1-banded: 8 one-level launches, 640x480)", "route": "cuda",
+         "source": "mono_slam_framework_torch/csrc/detect.cu",
+         "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:215",
+         "launches": per_level_launches["banded"],
+         "max_abs_err": max(lvl_full["max_abs_err"].values()),
+         "ms": banded_ms, "plain_ms": banded_plain_ms, "bound_ms": banded_bound[0],
+         "bound_by": banded_bound[1], "library_ms": None},
+        {"name": "detect_level (B1-full: levels 5-7, 240x320)", "route": "cuda",
+         "source": "mono_slam_framework_torch/csrc/detect.cu",
+         "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:202",
+         "launches": per_level_launches["full"],
+         "max_abs_err": max(lvl_small["max_abs_err"].values()),
+         "ms": full_ms, "plain_ms": full_plain_ms, "bound_ms": full_bound[0],
+         "bound_by": full_bound[1], "library_ms": None},
         {"name": "pose_lm", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
-         "launches": n_b2, "max_abs_err": b2["T_max_abs_err"],
-         "ms": b2_ms, "plain_ms": b2_plain_ms},
+         "launches": n_b2 + run["launches"]["b2"], "max_abs_err": b2["T_max_abs_err"],
+         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_b[0],
+         "bound_by": b2_b[1], "library_ms": None},
     ]})
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Builds and loads the CUDA kernels of `csrc/`.
 
 The kernels are CUDA C++ for Hopper (`sm_90a`) with a plain C interface.
-On first use, `nvcc` compiles every `csrc/*.cu` into one shared library,
+On first use, one `nvcc` per `csrc/*.cu`, all started together, compiles
+each source to an object, and one more links them into a shared library,
 which is loaded with `ctypes`. The library lands in `_build/<hash>/`
 inside this package (ignored by git), keyed by a hash of the sources, so
 an edited source rebuilds and an unchanged one loads what is there.
@@ -23,10 +24,8 @@ import time
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,21 +75,28 @@ def load() -> ctypes.CDLL:
     lib_path = out_dir / "libmsf_kernels.so"
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        # build into a temporary name and rename: a concurrent or cut build
-        # never leaves a half-written library under the final name
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_info.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{build_info.log}"
-            )
-        os.replace(tmp, lib_path)
+        # build into a temporary directory and rename the library: a
+        # concurrent or cut build never leaves a half-written library under
+        # the final name
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            tmp = pathlib.Path(tmp)
+            jobs = []
+            for src in sorted(CSRC.glob("*.cu")):
+                cmd = [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(tmp / f"{src.stem}.o")]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in jobs]
+            link = [_nvcc(), *ARCH, "-shared", "-o", str(tmp / lib_path.name),
+                    *(cmd[-1] for cmd, _, _ in logs)]
+            if all(rc == 0 for _, _, rc in logs):
+                proc = subprocess.run(link, capture_output=True, text=True)
+                logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+            build_info.log = "".join(log for _, log, _ in logs)
+            failed = [(cmd, log, rc) for cmd, log, rc in logs if rc != 0]
+            if failed:
+                cmd, log, rc = failed[0]
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+            os.replace(tmp / lib_path.name, lib_path)
         build_info.built = True
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():

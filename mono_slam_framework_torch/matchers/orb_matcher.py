@@ -6,7 +6,8 @@ Hamming knnMatch(k=2) + Lowe ratio test with strict '<'
 (featurematcher.cpp:32) and integer-truncated keypoint coordinates
 (featurematcher.cpp:33-38). Per-frame features are cached by frame key;
 the reference recomputes both sides every call and gets the same matches.
-Extraction runs on the matcher's `device`; results come back as numpy.
+Extraction runs on the matcher's `device` (the card unless the caller asks
+for the CPU); results come back as numpy.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import collections
 
 import torch
 
+from mono_slam_framework_torch import device as device_mod
 from mono_slam_framework_torch.matchers.base import FeatureMatcher, MatchFramesResult
 from mono_slam_framework_torch.ops import hamming, orb
 
@@ -46,7 +48,7 @@ class OrbFeatureMatcher(FeatureMatcher):
         fast_threshold: float = 20.0,
         cache_size: int = 512,
         subpixel: bool = True,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = device_mod.DEFAULT,
     ):
         """`subpixel=True` carries the refined float coordinates as
         measurements alongside the integer contract."""
@@ -55,7 +57,7 @@ class OrbFeatureMatcher(FeatureMatcher):
         self.max_features = int(max_features)
         self.fast_threshold = float(fast_threshold)
         self.cache_size = int(cache_size)
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self._cache: collections.OrderedDict[object, orb.Features] = (
             collections.OrderedDict()
         )
@@ -77,6 +79,17 @@ class OrbFeatureMatcher(FeatureMatcher):
         else:
             self._cache.move_to_end(fid)
         return feats
+
+    def seed_cache(self, frame, feats: orb.Features) -> None:
+        """Insert features extracted elsewhere for `frame`, so that later
+        stages reuse them without extracting."""
+        fid = getattr(frame, "matcher_key", None)
+        if fid is None:
+            fid = id(frame)
+        self._cache[fid] = feats
+        self._cache.move_to_end(fid)
+        if len(self._cache) > self.cache_size:
+            self._cache.popitem(last=False)
 
     def drop_frame_cache(self, frame_id=None) -> None:
         if frame_id is None:

@@ -15,6 +15,14 @@ occupies rows `row0[l] .. row0[l] + h_l` of a [rows, w0] f32 stack (see
 
 `detect_maps` runs `detect_maps_plain` for a CPU stack and launches the
 kernel (`csrc/detect.cu`, `detect_maps_cuda`) for a CUDA stack.
+
+`detect_level` is the same kernel launched over ONE level at the level's own
+width: the Hopper form of the JAX package's per-level Pallas kernels
+`_banded_kernel` (levels taller than 96 rows, cut into 64-row VMEM bands) and
+`_full_kernel` (at most 96 rows, one program), which `pallas_detect.
+detect_stage` launches. On the card the band split has no reason to exist: a
+32x32 tile with a 16-px halo covers a level of any height.
+`detect_maps_per_level` stacks such launches into the one-launch layout.
 """
 
 from __future__ import annotations
@@ -30,6 +38,11 @@ from mono_slam_framework_torch.ops import fast, filters
 
 PATCH_RADIUS = 15  # intensity-centroid patch (HALF_PATCH_SIZE)
 TILE = 32  # output tile side of the CUDA kernel
+# levels of at most this many rows stand for the JAX package's
+# whole-level `_full_kernel`, taller ones for `_banded_kernel`
+# (pallas_detect._SMALL_ROWS); the launch is the same
+FULL_MAX_ROWS = 96
+PAD_VALUES = (-torch.inf, 0.0, 0.0, 0.0, 0.0)  # padded columns: score -inf, the other maps 0
 
 
 class DetectMaps(NamedTuple):
@@ -93,16 +106,21 @@ def _check_stack(stack, dims):
     return dims
 
 
-def detect_maps_plain(stack, dims, threshold: float = 20.0, border: int = 31):
-    """Plain PyTorch version of kernel B1 over a [rows, w0] level stack."""
+def _levels_stacked(stack, dims, threshold, border, level_fn):
+    """level_fn over each [h, w] level of a [rows, w0] stack, the results
+    padded to w0 and stacked back into the one-launch layout."""
     dims = _check_stack(stack, dims)
     row0, rows, w0 = level_layout(dims)
-    pad_values = (-torch.inf, 0.0, 0.0, 0.0, 0.0)  # score -inf, the other maps 0
     levels = []
     for (h, w), r in zip(dims, row0):
-        maps = level_maps_plain(stack[r : r + h, :w], threshold, border)
-        levels.append([F.pad(m, (0, w0 - w), value=v) for m, v in zip(maps, pad_values)])
+        maps = level_fn(stack[r : r + h, :w].contiguous(), threshold, border)
+        levels.append([F.pad(m, (0, w0 - w), value=v) for m, v in zip(maps, PAD_VALUES)])
     return DetectMaps(*(torch.cat(ms) for ms in zip(*levels)))
+
+
+def detect_maps_plain(stack, dims, threshold: float = 20.0, border: int = 31):
+    """Plain PyTorch version of kernel B1 over a [rows, w0] level stack."""
+    return _levels_stacked(stack, dims, threshold, border, level_maps_plain)
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,10 +135,10 @@ def _level_table(dims, device):
     return torch.tensor(rows, dtype=torch.int32, device=device), t
 
 
-def detect_maps_cuda(stack, dims, threshold: float = 20.0, border: int = 31):
-    """Kernel B1: one launch over every level of a CUDA [rows, w0] stack."""
+def _launch(stack, dims, threshold, border):
+    """One launch of the B1 kernel over the levels `dims` of a CUDA stack."""
     if stack.device.type != "cuda":
-        raise ValueError(f"detect_maps_cuda needs a CUDA tensor, got {stack.device}")
+        raise ValueError(f"the B1 kernel needs a CUDA tensor, got {stack.device}")
     dims = _check_stack(stack, dims)
     if not stack.is_contiguous():
         raise ValueError("the level stack is not contiguous")
@@ -134,11 +152,30 @@ def detect_maps_cuda(stack, dims, threshold: float = 20.0, border: int = 31):
         _kernels.stream_ptr(stack.device),
     )
     _kernels.check(err, "detect_maps_launch")
-    detect_maps_cuda.launches += 1
     return DetectMaps(*out.unbind(0))
 
 
+def detect_maps_cuda(stack, dims, threshold: float = 20.0, border: int = 31):
+    """Kernel B1: one launch over every level of a CUDA [rows, w0] stack."""
+    maps = _launch(stack, dims, threshold, border)
+    detect_maps_cuda.launches += 1
+    return maps
+
+
 detect_maps_cuda.launches = 0
+
+
+def detect_level_cuda(img, threshold: float = 20.0, border: int = 31):
+    """Kernel B1 over one CUDA [h, w] level (w0 = w): the Hopper form of
+    `_banded_kernel` (h > 96) or `_full_kernel` (h <= 96), counted under
+    that name in `detect_level_cuda.launches`."""
+    h, w = img.shape
+    maps = _launch(img, ((h, w),), threshold, border)
+    detect_level_cuda.launches["full" if h <= FULL_MAX_ROWS else "banded"] += 1
+    return maps
+
+
+detect_level_cuda.launches = {"banded": 0, "full": 0}
 
 
 def detect_maps(stack, dims, threshold: float = 20.0, border: int = 31):
@@ -147,3 +184,17 @@ def detect_maps(stack, dims, threshold: float = 20.0, border: int = 31):
     if stack.is_cuda:
         return detect_maps_cuda(stack, dims, threshold, border)
     return detect_maps_plain(stack, dims, threshold, border)
+
+
+def detect_level(img, threshold: float = 20.0, border: int = 31):
+    """The five maps of one [h, w] level: `level_maps_plain` for a CPU
+    tensor, one kernel launch for a CUDA tensor."""
+    if img.is_cuda:
+        return detect_level_cuda(img, threshold, border)
+    return level_maps_plain(img, threshold, border)
+
+
+def detect_maps_per_level(stack, dims, threshold: float = 20.0, border: int = 31):
+    """`detect_maps` with one `detect_level` call per level in place of one
+    launch over the stack; the same maps in the same layout."""
+    return _levels_stacked(stack, dims, threshold, border, detect_level)

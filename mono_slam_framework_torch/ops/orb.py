@@ -7,7 +7,7 @@ orientation, rBRIEF). One image runs as:
   * the 8-level pyramid as per-level bilinear (antialiased triangle) weight
     matmuls from the numpy `_bilinear_weight_mat` tables, stacked by rows;
   * the detection maps of every level in one call (`ops/detect.py`,
-    kernel B1 on the card);
+    kernel B1 on the card), or with `per_level=True` one call per level;
   * an exact per-level top-k over the score maps with OpenCV's geometric
     per-level budgets (ties may come out in another order than in the JAX
     package: compare feature sets, never slots);
@@ -234,15 +234,23 @@ def _post_detect(maps, h0: int, w0: int, max_features: int) -> Features:
     )
 
 
-def extract(img, max_features: int, fast_threshold: float = 20.0) -> Features:
+def extract(
+    img, max_features: int, fast_threshold: float = 20.0, per_level: bool = False
+) -> Features:
     """ORB features over an 8-level pyramid. img: [H, W] grayscale.
 
     Returns exactly sum(_per_level_budget(max_features)) slots, level-major,
     with a validity mask. Runs on the device of `img`.
+
+    `per_level=True` is the counterpart of the JAX package's
+    `extract(use_fused=True, onehot_desc=False)`: the detection maps come
+    from one launch per pyramid level at the level's own size (the Hopper
+    form of `pallas_detect.detect_stage`), then the same top-k, subpixel,
+    orientation and rBRIEF steps. It gives the same Features as the default
+    one-launch path: the maps agree wherever a feature reads them.
     """
     img = img.to(torch.float32)
     h0, w0 = img.shape
-    maps = detect.detect_maps(
-        pyramid(img), _level_dims(h0, w0), fast_threshold, BORDER
-    )
+    detect_fn = detect.detect_maps_per_level if per_level else detect.detect_maps
+    maps = detect_fn(pyramid(img), _level_dims(h0, w0), fast_threshold, BORDER)
     return _post_detect(maps, h0, w0, max_features)

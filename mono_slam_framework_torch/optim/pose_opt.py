@@ -43,9 +43,10 @@ def _edge_terms(T, Xw, uv, K, mask, info, use_huber: bool):
 
 
 def _normal_eqs(J, w, r):
-    H = torch.einsum("eik,e,eil->kl", J, w, J)
-    b = torch.einsum("eik,e,ei->k", J, w, r)
-    return H, b
+    # two-operand products: a three-operand einsum searches a contraction
+    # path on the host at every call
+    wJ = (J * w[:, None, None]).reshape(-1, 6)
+    return wJ.T @ J.reshape(-1, 6), wJ.T @ r.reshape(-1)
 
 
 def _round(T_init, Xw, uv, K, mask, info, use_huber: bool):

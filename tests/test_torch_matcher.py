@@ -30,7 +30,7 @@ def frames():
 
 @pytest.fixture(scope="module")
 def results(frames):
-    port = OrbFeatureMatcher(threshold=0.7, max_features=400)
+    port = OrbFeatureMatcher(threshold=0.7, max_features=400, device="cpu")
     ref = JaxOrbMatcher(threshold=0.7, max_features=400)
     return port, port.match_frames(frames[0], frames[1]), ref.match_frames(frames[0], frames[1])
 
@@ -67,7 +67,7 @@ def test_match_against_many_matches_pairwise(results, frames):
 def test_ratio_threshold_is_strict(frames):
     # threshold 0 accepts nothing (best < 0 * second never holds), and a
     # looser threshold never accepts fewer matches
-    m = OrbFeatureMatcher(threshold=0.0, max_features=400)
+    m = OrbFeatureMatcher(threshold=0.0, max_features=400, device="cpu")
     assert m.match_frames(frames[0], frames[1]).num_matches == 0
     m.set_threshold(0.9)
     assert m.match_frames(frames[0], frames[1]).num_matches > 50

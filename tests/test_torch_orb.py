@@ -34,8 +34,9 @@ def _jax_extract(img, max_features):
 
 def _images():
     rng = np.random.default_rng(3)
+    # both images 240x320, so the second test reuses the first's JAX compile
     smooth = np.asarray(jfilters.gaussian_blur(
-        jnp.asarray(rng.uniform(0, 255, (200, 256)).astype(np.float32)), size=5, sigma=1.2
+        jnp.asarray(rng.uniform(0, 255, (240, 320)).astype(np.float32)), size=5, sigma=1.2
     ))
     world = sim.PlaneWorld(width=320, height=240, f=250.0, second_plane=(3.0, 0.3))
     view = world.render(sim.lateral_trajectory(2, step=0.05)[1])

@@ -10,7 +10,8 @@ keyframes, tables of 256), on a map seeded from the simulator's geometry
   * `steady_step` end to end (each side extracts its own features): T2
     within atol 1e-3;
   * chip_smoke's chained drive on the CPU against ground truth;
-  * the port imports with JAX blocked.
+  * the port, every subpackage of the host pipeline included, imports with
+    JAX blocked.
 """
 
 import functools
@@ -103,9 +104,9 @@ def jax_core(scene):
 
 def test_steady_core_matches_jax(scene, jax_core):
     _, _, cur, state = scene
-    inputs = convert.steady_inputs_from_numpy(*state)
+    inputs = convert.steady_inputs_from_numpy(*state, device="cpu")
     out = fused_tracking._steady_core(
-        convert.features_from_numpy(cur), *inputs, **STATICS
+        convert.features_from_numpy(cur, device="cpu"), *inputs, **STATICS
     )
     ref = jax_core
     np.testing.assert_allclose(out.motion.T1.numpy(), ref["T1"], atol=1e-4)
@@ -122,7 +123,7 @@ def test_steady_core_matches_jax(scene, jax_core):
 
 def test_steady_step_end_to_end(scene, jax_core):
     img, T_gt, _, state = scene
-    inputs = convert.steady_inputs_from_numpy(*state)
+    inputs = convert.steady_inputs_from_numpy(*state, device="cpu")
     out = fused_tracking.steady_step(
         torch.from_numpy(img), *inputs, **STATICS,
         max_features=CFG.max_features, fast_threshold=chip_smoke.FAST_THRESHOLD,
@@ -137,7 +138,7 @@ def test_motion_and_local_steps_compose(scene):
     """motion_step then local_step, with the candidate mask and frustum pose
     the one-step program uses, give steady_step's outputs."""
     img, _, _, state = scene
-    inputs = convert.steady_inputs_from_numpy(*state)
+    inputs = convert.steady_inputs_from_numpy(*state, device="cpu")
     (prev, prev_px, prev_row, mp_pos, T_init, kf, kf_px, kf_row, first_slot,
      normal, maxdist, K) = inputs
     extract = dict(max_features=CFG.max_features, fast_threshold=chip_smoke.FAST_THRESHOLD)
@@ -168,7 +169,7 @@ def test_sim_rejects_unknown_plane_axis():
 
 def test_features_roundtrip(scene):
     _, _, cur, _ = scene
-    f = convert.features_from_numpy(cur)
+    f = convert.features_from_numpy(cur, device="cpu")
     assert f.desc.dtype == torch.int32 and f.octave.dtype == torch.int32
     back = convert.features_to_numpy(f)
     for k, v in cur.items():
@@ -207,4 +208,8 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", code], cwd=root, capture_output=True, text=True
     )
     assert proc.returncode == 0, proc.stderr
-    assert len(mods) >= 14
+    # every subpackage of the host pipeline is among them
+    prefix = "mono_slam_framework_torch."
+    for sub in ("estimation", "slam", "io", "viz", "utils", "params", "geometry", "optim"):
+        assert any(m.startswith(prefix + sub) for m in mods), sub
+    assert len(mods) >= 33
