@@ -8,18 +8,26 @@ checkout; it exits non-zero without either. Each phase prints one JSON
 line and raises if it fails:
 
   1. device   — nvidia-smi name / power limit, torch and CUDA versions;
-  2. build    — nvcc builds csrc/*.cu into the kernel library;
+  2. build    — nvcc builds csrc/*.cu into the kernel library; fails if
+                ptxas reports a stack frame or a spill for kernel B2;
   3. b1       — kernel B1 (detection maps) against its plain version on a
                 rendered 640x480 view, per level on interior pixels;
   4. b2       — kernel B2 (pose LM) against its plain version on a seeded
-                pose problem with 2000 edges, outliers, padding and info;
+                pose problem with 2000 edges, outliers, padding and info, on
+                a steady-step-shaped one (2000 slots under a keep mask), on
+                a batch of 3 with different padding and cameras, and on
+                50,000 slots (past shared memory: read from device memory);
   5. extract  — orb.extract through B1 against the plain path, by feature set;
   6. slice    — 40 chained frames of fused_tracking.steady_step at 640x480,
                 2000 features, 8 local keyframes and tables of 1024, on a map
                 seeded from the simulator's geometry; checks launch counts,
                 poses against ground truth and against the same drive with
                 both kernels replaced by their plain versions, and times it;
-  7. kernel_times — B1 and B2 alone against their plain versions;
+  7. kernel_times — B1 and B2 alone at main-path shapes: the bare launch
+                (the C entry point on prepared device tensors, many launches
+                between two CUDA events over their count), the wrapper the
+                same way, and the plain version; then b2_cluster_sweep, B2's
+                bare time at each cluster size it is built for;
   8. b1_per_level — the one-level launches of B1 (the Hopper form of the
                 JAX package's per-level B1-banded / B1-full kernels) against
                 level_maps_plain at every level of a 640x480 and a 240x320
@@ -44,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +80,10 @@ from mono_slam_framework_torch.slam.map_model import reset_map_ids  # noqa: E402
 
 RATIO = 0.7
 FAST_THRESHOLD = 20.0
+# the kernels' design, reported in the kernels line: B2 as a cluster of CTAs
+# per problem, B1 in 32x64 tiles (before them: one block per B2 problem, 32x32
+# B1 tiles)
+DESIGN = "B2 cluster, B1 32x64 tiles"
 
 
 class Config(NamedTuple):
@@ -262,9 +275,10 @@ def plain_kernels():
 
 
 def pose_problem(seed: int = 0, n: int = 2000, n_outliers: int = 100,
-                 n_pad: int = 64):
+                 n_pad: int = 64, f: float = 500.0, c=(320.0, 240.0)):
     """A seeded motion-only pose problem (test_optim.make_pose_problem's
-    construction) with outliers, padded edges and per-edge info; numpy."""
+    construction) with outliers, padded edges and per-edge info, seen by a
+    camera of focal length f and principal point c; numpy."""
     rng = np.random.default_rng(seed)
     X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
                   rng.uniform(4, 10, n)], -1)
@@ -272,7 +286,7 @@ def pose_problem(seed: int = 0, n: int = 2000, n_outliers: int = 100,
     xi_true = rng.normal(size=6) * 0.1
     T_true = exp(xi_true)
     Xc = X @ T_true[:3, :3].T + T_true[:3, 3]
-    uv = (Xc[:, :2] / Xc[:, 2:]) * 500 + [320, 240]
+    uv = (Xc[:, :2] / Xc[:, 2:]) * f + np.asarray(c)
     uv = uv + rng.normal(0, 0.8, uv.shape)
     idx = rng.choice(n - n_pad, n_outliers, replace=False)
     uv[idx] += rng.uniform(30, 120, (n_outliers, 2)) * rng.choice([-1, 1], (n_outliers, 2))
@@ -282,9 +296,20 @@ def pose_problem(seed: int = 0, n: int = 2000, n_outliers: int = 100,
     X[~valid] = 0.0
     uv[~valid] = 0.0
     info = rng.uniform(0.5, 1.5, n)
-    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    K = np.array([[f, 0, c[0]], [0, f, c[1]], [0, 0, 1]])
     f32 = lambda a: a.astype(np.float32)  # noqa: E731
     return f32(T0), f32(X), f32(uv), valid, f32(K), f32(info)
+
+
+def steady_problem(seed: int = 5, n: int = 2000, keep_share: float = 0.3):
+    """A pose problem shaped as the steady step hands it to B2: n feature
+    slots of which a scattered `keep_share` are associated (valid); the
+    other slots carry junk map positions, as `mp_pos[clamp(row, 0)]` does."""
+    T0, X, uv, _, K, info = pose_problem(seed, n, n_outliers=int(0.05 * n), n_pad=0)
+    rng = np.random.default_rng(seed + 1)
+    valid = rng.random(n) < keep_share
+    X[~valid] = X[0]
+    return T0, X, uv, valid, K, info
 
 
 def _cuda_ms(fn, n: int = 20) -> float:
@@ -299,6 +324,56 @@ def _cuda_ms(fn, n: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _per_launch_ms(fn, n: int = 200, reps: int = 5) -> float:
+    """ms per call of fn: n calls back to back between two CUDA events,
+    elapsed / n, median over reps (after 3 warm-up calls). The device runs
+    one call after another, so this is the device time of a call unless
+    the host issues it more slowly (then it is the host's)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def b1_bare(stack, dims):
+    """A closure that launches B1 through its C entry point (what
+    detect._launch calls) on prepared device inputs and outputs: no checks,
+    no allocation, no count."""
+    dims = tuple(dims)
+    _, rows, w0 = detect.level_layout(dims)
+    (gx, gy), table = detect.tile_plan(dims).grid, detect._device_table(dims, stack.device)
+    out = torch.empty((5, rows, w0), dtype=torch.float32, device=stack.device)
+    lib = _kernels.load()
+    args = (stack.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, rows, w0,
+            FAST_THRESHOLD, orb.BORDER, _kernels.stream_ptr(stack.device))
+    owners = (stack, table, out)  # kept alive by the closure
+    return lambda: (owners, lib.detect_maps_launch(*args))[1]
+
+
+def b2_bare(T0, X, uv, valid, K, info, cluster: int = pose_opt_cuda.CLUSTER):
+    """A closure that launches B2 on one prepared problem through its C
+    entry point (what pose_opt_cuda.pose_lm_batched calls): no checks, no
+    allocation, no count."""
+    dev = X.device
+    E = X.shape[0]
+    plan = pose_opt_cuda.lm_plan(E, cluster)
+    t = [X, uv, valid, info, K, T0, torch.empty((4, 4), dtype=torch.float32, device=dev),
+         torch.empty(E, dtype=torch.bool, device=dev),
+         torch.empty((), dtype=torch.int32, device=dev)]
+    lib = _kernels.load()
+    args = (*(x.data_ptr() for x in t), 1, E, *plan, _kernels.stream_ptr(dev))
+    return lambda: (t, lib.pose_lm_launch(*args))[1]
 
 
 # ---------------------------------------------------------------------------
@@ -348,23 +423,74 @@ def check_b1(img: np.ndarray, device):
     return rec
 
 
+def b2_batch_problems():
+    """Three pose problems of 1500 slots with 0, 200 and 700 padded slots
+    and three cameras, stacked [3, ...] (numpy)."""
+    probs = [pose_problem(seed, 1500, 80, pad, f, c) for seed, pad, f, c in (
+        (1, 0, 500.0, (320.0, 240.0)), (2, 200, 420.0, (300.0, 250.0)),
+        (3, 700, 610.0, (330.0, 230.0)))]
+    return [np.stack(xs) for xs in zip(*probs)]
+
+
+def compare_b2(got, ref, what: str) -> dict:
+    """Kernel B2's (T, inlier, n_good) against its plain version's, with the
+    tolerances of tests/test_optim.py's Pallas-vs-XLA check: T atol 1e-4,
+    inlier agreement > 0.98, n_good +- 2."""
+    (T_k, in_k, ng_k), (T_p, in_p, ng_p) = ([x.cpu() for x in r] for r in (got, ref))
+    rec = {"T_max_abs_err": float((T_k - T_p).abs().max()),
+           "inlier_agreement": float((in_k == in_p).float().mean()),
+           "n_good": ng_k.tolist(), "n_good_plain": ng_p.tolist()}
+    if not (rec["T_max_abs_err"] <= 1e-4 and rec["inlier_agreement"] > 0.98
+            and int((ng_k.long() - ng_p.long()).abs().max()) <= 2):
+        raise AssertionError(f"B2 differs from its plain version ({what}): {rec}")
+    return rec
+
+
 def check_b2(device):
-    """Kernel B2 against pose_optimize_plain on the card, at 2000 edges, with
-    the tolerances of tests/test_optim.py's Pallas-vs-XLA check."""
-    T0, X, uv, valid, K, info = pose_problem()
-    args = [torch.from_numpy(a).to(device) for a in (T0, X, uv, valid, K, info)]
-    T_k, in_k, ng_k = pose_opt_cuda.pose_optimize_cuda(*args)
-    T_p, in_p, ng_p = pose_opt.pose_optimize_plain(*args)
-    T_k, T_p = T_k.cpu().numpy(), T_p.cpu().numpy()
-    agree = float((in_k == in_p).float().mean())
-    err = float(np.abs(T_k - T_p).max())
-    np.testing.assert_allclose(T_k, T_p, atol=1e-4)
-    if not agree > 0.98:
-        raise AssertionError(f"B2 inlier agreement {agree}")
-    if abs(int(ng_k) - int(ng_p)) > 2:
-        raise AssertionError(f"B2 n_good {int(ng_k)} vs plain {int(ng_p)}")
-    return {"phase": "b2", "edges": len(X), "T_max_abs_err": err,
-            "inlier_agreement": agree, "n_good": int(ng_k), "n_good_plain": int(ng_p)}
+    """Kernel B2 against its plain version on the card: one problem at 2000
+    edges, one shaped as the steady step hands it over (2000 slots under a
+    keep mask), a batch of B = 3 problems with different padding and cameras
+    through the batched launcher, and one of 50,000 slots, more than the
+    shared memory of a cluster of 8 or of 1 holds."""
+    rec = {"phase": "b2"}
+    for name, prob in (("edges_2000", pose_problem()), ("steady_2000_slots", steady_problem())):
+        args = [torch.from_numpy(a).to(device) for a in prob]
+        rec[name] = compare_b2(pose_opt_cuda.pose_optimize_cuda(*args),
+                               pose_opt.pose_optimize_plain(*args), name)
+        rec[name]["valid_share"] = float(prob[3].mean())
+    batch = [torch.from_numpy(a).to(device) for a in b2_batch_problems()]
+    rec["batch_3"] = compare_b2(pose_opt_cuda.pose_lm_batched(*batch),
+                                pose_opt.pose_lm_batched_plain(*batch), "batch of 3")
+    # more slots than shared memory holds: the rest are read from device memory
+    big = [torch.from_numpy(a).to(device) for a in pose_problem(4, 50_000, 2500, 1000)]
+    ref = pose_opt.pose_optimize_plain(*big)
+    for c in (pose_opt_cuda.CLUSTER, 1):
+        plan = pose_opt_cuda.lm_plan(50_000, c)
+        got = pose_opt_cuda.pose_lm_batched(*(a[None] for a in big), cluster=c)
+        rec[f"edges_50000_cluster_{c}"] = {
+            **compare_b2([x[0] for x in got], ref, f"50,000 slots, cluster {c}"),
+            "device_memory_slots_per_cta": plan.slice - plan.resident}
+    return rec
+
+
+def b2_cluster_sweep(device):
+    """Kernel B2 at every cluster size it is built for: each against the
+    plain version, then its bare launch time at 2000 edges, at the steady
+    step's shape, and at 16 edges (the chain of 44 reductions and 40 solves
+    with next to no edge work: the kernel's floor)."""
+    probs = {"edges_2000": pose_problem(), "steady_2000_slots": steady_problem(),
+             "edges_16": pose_problem(n=16, n_outliers=0, n_pad=0)}
+    args = {k: [torch.from_numpy(a).to(device) for a in v] for k, v in probs.items()}
+    ref = pose_opt.pose_optimize_plain(*args["edges_2000"])
+    ms = {k: {} for k in probs}
+    for c in pose_opt_cuda.CLUSTERS:
+        got = pose_opt_cuda.pose_lm_batched(*(a[None] for a in args["edges_2000"]), cluster=c)
+        compare_b2([x[0] for x in got], ref, f"cluster {c}")
+        for k, a in args.items():
+            ms[k][c] = _per_launch_ms(b2_bare(*a, cluster=c))
+    return {"phase": "b2_cluster_sweep", "threads_per_cta": pose_opt_cuda.THREADS,
+            "bare_ms": ms, "fastest_at_2000": min(ms["edges_2000"], key=ms["edges_2000"].get),
+            "default": pose_opt_cuda.CLUSTER}
 
 
 def feature_set_agreement(fa: dict, fb: dict):
@@ -462,10 +588,10 @@ def check_extract_per_level(img: np.ndarray, device, max_features: int):
 B1_OPS_PER_PIXEL = 64 + 24 + 3 + 84 + 6 + 9 + 248 + 28
 # B2 per edge and pass: transform 15, projection 8, residual and weighted
 # chi2 6, Huber 4, the 2x6 Jacobian 36, J^T W J upper triangle 21 x 2 x 2 =
-# 84, J^T W r 24; and the passes: 4 rounds x (1 + 10 trial) + 4
-# reclassifications.
+# 84, J^T W r 24; and the passes: 4 rounds x (1 + 10 trial), each round's
+# reclassification read from the carried chi2.
 B2_OPS_PER_EDGE_PASS = 15 + 8 + 6 + 4 + 36 + 84 + 24
-B2_EDGE_PASSES = 4 * 11 + 4
+B2_EDGE_PASSES = 4 * 11
 # H100 SXM data sheet, at the card's full 700 W limit
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -489,11 +615,12 @@ def b1_bound(dims, stacked: bool):
     return bound_ms(n_bytes, B1_OPS_PER_PIXEL * px)
 
 
-def b2_bound(n_edges: int):
-    """B2's bound for one problem of n_edges: inputs Xw, uv, valid, info
-    (7 f32 per edge), T and K; outputs T and one inlier flag per edge."""
-    n_bytes = 4 * (7 * n_edges + 16 + 4) + 4 * (16 + n_edges)
-    return bound_ms(n_bytes, B2_OPS_PER_EDGE_PASS * B2_EDGE_PASSES * n_edges)
+def b2_bound(n_slots: int, n_valid: int):
+    """B2's bound for one problem: inputs Xw, uv, info (6 f32 per slot),
+    valid (1 byte per slot), T_init and K; outputs T, one inlier byte per
+    slot and n_good. Operations count the valid edges' passes."""
+    n_bytes = 25 * n_slots + 4 * (16 + 9) + n_slots + 4 * (16 + 1)
+    return bound_ms(n_bytes, B2_OPS_PER_EDGE_PASS * B2_EDGE_PASSES * n_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -646,6 +773,25 @@ def _print(rec):
     print(json.dumps(rec), flush=True)
 
 
+def _kernel_name(mangled: str) -> str:
+    """pose_lm_kernel<8> for _ZN..14pose_lm_kernelILi8EEEv..., detect_kernel
+    for _ZN..13detect_kernelE..."""
+    m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+
+
+def check_ptxas(ptxas: dict) -> None:
+    """The build gate: every instance of kernel B2 keeps its state in
+    registers (no stack frame, no spill), as its design needs."""
+    lm = {k: v for k, v in ptxas.items() if k.startswith("pose_lm_kernel")}
+    bad = {k: v for k, v in lm.items()
+           if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
+    if len(lm) != len(pose_opt_cuda.CLUSTERS) or bad:
+        raise AssertionError(f"ptxas: pose_lm_kernel instances {lm}, with stack or spill {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
@@ -658,11 +804,12 @@ def main() -> int:
     _print({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    lib = _kernels.load()
+    _kernels.load()
+    ptxas = {_kernel_name(k): v for k, v in _kernels.ptxas_report(_kernels.build_info.log).items()}
     _print({"phase": "build", "seconds": round(_kernels.build_info.seconds, 3),
             "built": _kernels.build_info.built, "library": str(_kernels.build_info.path),
-            "ptxas": [ln for ln in _kernels.build_info.log.splitlines() if "registers" in ln]})
-    del lib
+            "ptxas": ptxas})
+    check_ptxas(ptxas)
 
     cfg = FULL
     t0 = time.perf_counter()
@@ -712,14 +859,25 @@ def main() -> int:
     # ---- each kernel alone against its plain version, main-path shapes ----
     dims = orb._level_dims(cfg.h, cfg.w)
     stack = orb.pyramid(torch.from_numpy(images[cfg.n_kf]).to(dev))
-    b1_ms = _cuda_ms(lambda: detect.detect_maps_cuda(stack, dims, FAST_THRESHOLD, orb.BORDER))
+    b1_ms = _per_launch_ms(b1_bare(stack, dims))
+    b1_wrapper_ms = _per_launch_ms(
+        lambda: detect.detect_maps_cuda(stack, dims, FAST_THRESHOLD, orb.BORDER))
     b1_plain_ms = _cuda_ms(
         lambda: detect.detect_maps_plain(stack, dims, FAST_THRESHOLD, orb.BORDER))
     args = [torch.from_numpy(a).to(dev) for a in pose_problem()]
-    b2_ms = _cuda_ms(lambda: pose_opt_cuda.pose_optimize_cuda(*args))
+    b2_ms = _per_launch_ms(b2_bare(*args))
+    b2_wrapper_ms = _per_launch_ms(lambda: pose_opt_cuda.pose_optimize_cuda(*args))
     b2_plain_ms = _cuda_ms(lambda: pose_opt.pose_optimize_plain(*args))
-    _print({"phase": "kernel_times", "runs": 20, "b1_ms": b1_ms, "b1_plain_ms": b1_plain_ms,
-            "b2_ms": b2_ms, "b2_plain_ms": b2_plain_ms})
+    st_args = [torch.from_numpy(a).to(dev) for a in steady_problem()]
+    b2_steady_ms = _per_launch_ms(b2_bare(*st_args))
+    b2_steady_wrapper_ms = _per_launch_ms(lambda: pose_opt_cuda.pose_optimize_cuda(*st_args))
+    _print({"phase": "kernel_times", "launches_per_run": 200, "runs": 5,
+            "b1_ms": b1_ms, "b1_wrapper_ms": b1_wrapper_ms, "b1_plain_ms": b1_plain_ms,
+            "b2_ms": b2_ms, "b2_wrapper_ms": b2_wrapper_ms, "b2_plain_ms": b2_plain_ms,
+            "b2_steady_slots": len(st_args[1]),
+            "b2_steady_valid_share": float(st_args[3].float().mean()),
+            "b2_steady_ms": b2_steady_ms, "b2_steady_wrapper_ms": b2_steady_wrapper_ms})
+    _print(b2_cluster_sweep(dev))
 
     # ---- the per-level detection path: B1-banded and B1-full ----
     small = render(SMALL._replace(n_frames=1))[2][0]  # a 240x320 view
@@ -747,21 +905,29 @@ def main() -> int:
     def run_levels(fn, levels):
         return lambda: [fn(lv, FAST_THRESHOLD, orb.BORDER) for lv in levels]
 
+    def bare_levels(levels):
+        fns = [b1_bare(lv, (tuple(lv.shape),)) for lv in levels]
+        return lambda: [f() for f in fns]
+
     banded_levels = levels_of(images[cfg.n_kf])  # all 8 levels of 640x480: > 96 rows
     full_levels = [lv for lv in levels_of(small) if lv.shape[0] <= detect.FULL_MAX_ROWS]
-    banded_ms = _cuda_ms(run_levels(detect.detect_level_cuda, banded_levels))
+    banded_ms = _per_launch_ms(bare_levels(banded_levels))
+    banded_wrapper_ms = _per_launch_ms(run_levels(detect.detect_level_cuda, banded_levels))
     banded_plain_ms = _cuda_ms(run_levels(detect.level_maps_plain, banded_levels))
-    full_ms = _cuda_ms(run_levels(detect.detect_level_cuda, full_levels))
+    full_ms = _per_launch_ms(bare_levels(full_levels))
+    full_wrapper_ms = _per_launch_ms(run_levels(detect.detect_level_cuda, full_levels))
     full_plain_ms = _cuda_ms(run_levels(detect.level_maps_plain, full_levels))
     banded_dims = [tuple(lv.shape) for lv in banded_levels]
     full_dims = [tuple(lv.shape) for lv in full_levels]
     _print({"phase": "b1_per_level", "views": [lvl_full, lvl_small],
             "extract_equal_keypoints": n_feat, "launches": per_level_launches,
-            "runs": 20, "one_level_launches_640x480_ms": banded_ms,
+            "one_level_launches_640x480_ms": banded_ms,
+            "one_level_launches_640x480_wrapper_ms": banded_wrapper_ms,
             "one_launch_640x480_ms": b1_ms,
             "one_level_launches_640x480_plain_ms": banded_plain_ms,
             "full_levels_240x320": [list(d) for d in full_dims],
-            "full_levels_ms": full_ms, "full_levels_plain_ms": full_plain_ms})
+            "full_levels_ms": full_ms, "full_levels_wrapper_ms": full_wrapper_ms,
+            "full_levels_plain_ms": full_plain_ms})
 
     # ---- the System: initialization, tracking, local mapping with BA ----
     sys_cfg = SYSTEM_FULL
@@ -781,35 +947,40 @@ def main() -> int:
     b1_stack_bound = b1_bound(dims, stacked=True)
     banded_bound = b1_bound(banded_dims, stacked=False)
     full_bound = b1_bound(full_dims, stacked=False)
-    b2_b = b2_bound(len(pose_problem()[1]))
+    b2_prob = pose_problem()
+    b2_b = b2_bound(len(b2_prob[1]), int(b2_prob[3].sum()))
     _print({"kernels": [
         {"name": "detect_maps", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
          "launches": n_b1 + run["launches"]["b1"],
          "max_abs_err": max(b1["max_abs_err"].values()),
-         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_stack_bound[0],
-         "bound_by": b1_stack_bound[1], "library_ms": None},
+         "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
+         "bound_ms": b1_stack_bound[0],
+         "bound_by": b1_stack_bound[1], "library_ms": None, "design": DESIGN},
         {"name": "detect_level (B1-banded: 8 one-level launches, 640x480)", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:215",
          "launches": per_level_launches["banded"],
          "max_abs_err": max(lvl_full["max_abs_err"].values()),
-         "ms": banded_ms, "plain_ms": banded_plain_ms, "bound_ms": banded_bound[0],
-         "bound_by": banded_bound[1], "library_ms": None},
+         "ms": banded_ms, "wrapper_ms": banded_wrapper_ms, "plain_ms": banded_plain_ms,
+         "bound_ms": banded_bound[0],
+         "bound_by": banded_bound[1], "library_ms": None, "design": DESIGN},
         {"name": "detect_level (B1-full: levels 5-7, 240x320)", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:202",
          "launches": per_level_launches["full"],
          "max_abs_err": max(lvl_small["max_abs_err"].values()),
-         "ms": full_ms, "plain_ms": full_plain_ms, "bound_ms": full_bound[0],
-         "bound_by": full_bound[1], "library_ms": None},
+         "ms": full_ms, "wrapper_ms": full_wrapper_ms, "plain_ms": full_plain_ms,
+         "bound_ms": full_bound[0],
+         "bound_by": full_bound[1], "library_ms": None, "design": DESIGN},
         {"name": "pose_lm", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
-         "launches": n_b2 + run["launches"]["b2"], "max_abs_err": b2["T_max_abs_err"],
-         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_b[0],
-         "bound_by": b2_b[1], "library_ms": None},
+         "launches": n_b2 + run["launches"]["b2"], "max_abs_err": b2["edges_2000"]["T_max_abs_err"],
+         "ms": b2_ms, "wrapper_ms": b2_wrapper_ms, "plain_ms": b2_plain_ms,
+         "bound_ms": b2_b[0],
+         "bound_by": b2_b[1], "library_ms": None, "design": DESIGN},
     ]})
     print(smi)
     print(json.dumps({"ok": True, "device": {

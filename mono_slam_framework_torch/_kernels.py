@@ -18,6 +18,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import tempfile
 import time
@@ -33,16 +34,18 @@ _F = ctypes.c_float
 # every pointer and the stream are c_void_p: without argtypes ctypes would
 # pass Python ints as 32-bit C ints and cut the pointers
 _SIGNATURES = {
-    # (img, out5, table, n_levels, n_tile_rows, rows, w0, threshold, border,
-    #  stream)
-    "detect_maps_launch": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # (xw, uv, valid, info, k4, t_init, t_out, inlier, B, E, stream)
-    "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (img, out5, table, n_levels, grid_x, grid_y, rows, w0, threshold,
+    #  border, stream)
+    "detect_maps_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # (xw, uv, valid, info, K, t_init, t_out, inlier, n_good, B, E, cluster,
+    #  slice, resident, smem, stream)
+    "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
 class BuildInfo:
-    """What the last `load` did: library path, seconds spent, compiler log."""
+    """What the last `load` did: library path, seconds spent, compiler log
+    (kept beside the library, so a library loaded as built keeps it too)."""
 
     path: pathlib.Path | None = None
     seconds: float = 0.0
@@ -96,8 +99,12 @@ def load() -> ctypes.CDLL:
             if failed:
                 cmd, log, rc = failed[0]
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+            (out_dir / "nvcc.log").write_text(build_info.log)
             os.replace(tmp / lib_path.name, lib_path)
         build_info.built = True
+    else:
+        log = out_dir / "nvcc.log"
+        build_info.log = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -106,6 +113,34 @@ def load() -> ctypes.CDLL:
     build_info.path = lib_path
     build_info.seconds = time.perf_counter() - t0
     return lib
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name) what `-Xptxas -v` reported: registers,
+    stack frame, spill stores and loads, and shared memory, in bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "stack_frame": 0, "spill_stores": 0,
+                         "spill_loads": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        rec = out[name]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rec["stack_frame"], rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rec["smem"] = int(m.group(1)) if m else 0
+            m = re.search(r"(\d+) bytes cumulative stack size", line)
+            rec["stack_frame"] = max(rec["stack_frame"], int(m.group(1)) if m else 0)
+    return out
 
 
 def check(err: int, name: str) -> None:

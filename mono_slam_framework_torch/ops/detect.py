@@ -21,8 +21,10 @@ width: the Hopper form of the JAX package's per-level Pallas kernels
 `_banded_kernel` (levels taller than 96 rows, cut into 64-row VMEM bands) and
 `_full_kernel` (at most 96 rows, one program), which `pallas_detect.
 detect_stage` launches. On the card the band split has no reason to exist: a
-32x32 tile with a 16-px halo covers a level of any height.
+32x64 tile with a 16-px halo covers a level of any height.
 `detect_maps_per_level` stacks such launches into the one-launch layout.
+
+`tile_plan` is the launch's grid in plain Python (no card needed).
 """
 
 from __future__ import annotations
@@ -37,7 +39,12 @@ from mono_slam_framework_torch import _kernels
 from mono_slam_framework_torch.ops import fast, filters
 
 PATCH_RADIUS = 15  # intensity-centroid patch (HALF_PATCH_SIZE)
-TILE = 32  # output tile side of the CUDA kernel
+TILE_ROWS, TILE_COLS = 32, 64  # the CUDA kernel's output tile
+# shared memory of one block of the kernel (csrc/detect.cu): the window with
+# its 16-px halo and an odd row stride, the moments' row sums (later the
+# Harris 7-row sums), the Gaussian column sums (later the Harris surface)
+SMEM_BYTES = 4 * ((TILE_ROWS + 32) * (TILE_COLS + 33) + 2 * (TILE_ROWS + 30) * (TILE_COLS + 1)
+                  + (TILE_ROWS + 2) * (TILE_COLS + 3))
 # levels of at most this many rows stand for the JAX package's
 # whole-level `_full_kernel`, taller ones for `_banded_kernel`
 # (pallas_detect._SMALL_ROWS); the launch is the same
@@ -123,16 +130,35 @@ def detect_maps_plain(stack, dims, threshold: float = 20.0, border: int = 31):
     return _levels_stacked(stack, dims, threshold, border, level_maps_plain)
 
 
+class TilePlan(NamedTuple):
+    grid: tuple  # (tile columns over w0, tile rows over all levels)
+    table: tuple  # per level (row0, h, w, first tile row)
+    pad_tiles: int  # tiles wholly in a level's padded columns (constants only)
+
+
 @functools.lru_cache(maxsize=None)
-def _level_table(dims, device):
-    """Device table [L, 4] int32 = (row0, h, w, first tile row), and the
-    total number of tile rows."""
-    row0, _, _ = level_layout(dims)
-    rows, t = [], 0
+def tile_plan(dims) -> TilePlan:
+    """B1's grid over the row-stacked levels `dims`: TILE_ROWS x TILE_COLS
+    output tiles, tile row t of level l covering its rows from
+    (t - first tile row) * TILE_ROWS, tile column j its columns from
+    j * TILE_COLS, clipped to the level's h and the stack's w0."""
+    row0, _, w0 = level_layout(dims)
+    gx = _ceil_div(w0, TILE_COLS)
+    table, t, pad = [], 0, 0
     for (h, w), r in zip(dims, row0):
-        rows.append((r, h, w, t))
-        t += -(-h // TILE)
-    return torch.tensor(rows, dtype=torch.int32, device=device), t
+        table.append((r, h, w, t))
+        t += _ceil_div(h, TILE_ROWS)
+        pad += _ceil_div(h, TILE_ROWS) * (gx - _ceil_div(w, TILE_COLS))
+    return TilePlan((gx, t), tuple(table), pad)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(dims, device):
+    return torch.tensor(tile_plan(dims).table, dtype=torch.int32, device=device)
 
 
 def _launch(stack, dims, threshold, border):
@@ -143,13 +169,11 @@ def _launch(stack, dims, threshold, border):
     if not stack.is_contiguous():
         raise ValueError("the level stack is not contiguous")
     _, rows, w0 = level_layout(dims)
-    table, n_tile_rows = _level_table(dims, stack.device)
-    lib = _kernels.load()
+    (gx, gy), table = tile_plan(dims).grid, _device_table(dims, stack.device)
     out = torch.empty((5, rows, w0), dtype=torch.float32, device=stack.device)
-    err = lib.detect_maps_launch(
-        stack.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims),
-        n_tile_rows, rows, w0, float(threshold), int(border),
-        _kernels.stream_ptr(stack.device),
+    err = _kernels.load().detect_maps_launch(
+        stack.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, rows, w0,
+        float(threshold), int(border), _kernels.stream_ptr(stack.device),
     )
     _kernels.check(err, "detect_maps_launch")
     return DetectMaps(*out.unbind(0))

@@ -10,7 +10,13 @@ from the input pose (Optimizer.cc:295).
 `pose_optimize` dispatches on the device of its tensors: CPU tensors run
 `pose_optimize_plain` below; CUDA tensors launch the hand-written kernel
 (`pose_opt_cuda.pose_optimize_cuda`), which computes the same schedule in
-one launch.
+one launch. `pose_lm_batched_plain` is the plain version of the kernel's
+batched launcher (`pose_opt_cuda.pose_lm_batched`).
+
+Each round carries the chi2 of its accepted pose (as the Pallas kernel
+carries e2), and the next round's mask is reclassified from it: the chi2
+does not depend on the mask or the Huber kernel, so it equals a fresh pass
+at the round's pose.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ def _round(T_init, Xw, uv, K, mask, info, use_huber: bool):
     The edge terms at the current pose are carried across iterations (each
     step evaluates them once, at the trial pose, and keeps them on
     acceptance). Accept/reject is a `torch.where`, so the loop never waits
-    on the device.
+    on the device. Returns (T, chi2 [E] of every edge at T).
     """
 
     def chi2_from(e2):
@@ -80,10 +86,11 @@ def _round(T_init, Xw, uv, K, mask, info, use_huber: bool):
         lam, nu = lm.nielsen_update(lam, nu, rho, accept)
         T = torch.where(accept, T_new, T)
         chi = torch.where(accept, chi_new, chi)
+        e2 = torch.where(accept, e2_n, e2)
         H_n, b_n = _normal_eqs(J_n, w_n, r_n)
         H = torch.where(accept, H_n, H)
         b = torch.where(accept, b_n, b)
-    return T
+    return T, e2
 
 
 def pose_optimize_plain(T_init, Xw, uv, valid, K, info=None):
@@ -114,13 +121,28 @@ def pose_optimize_plain(T_init, Xw, uv, valid, K, info=None):
     T_fin = T_init
     for it in range(N_ROUNDS):
         mask = (valid & inlier).to(dtype)
-        T_fin = _round(T_init, Xw, uv, K, mask, info, use_huber=it < 3)
+        T_fin, e2 = _round(T_init, Xw, uv, K, mask, info, use_huber=it < 3)
         # reclassify ALL edges by chi2 at the round's pose (Optimizer.cc:300-321)
-        _, e2, _, _ = _edge_terms(T_fin, Xw, uv, K, mask, info, False)
         inlier = e2 <= lm.CHI2_MONO
     inlier = inlier & valid
     n_good = torch.sum(inlier.to(torch.int32))
     return se3.orthonormalize(T_fin), inlier, n_good
+
+
+def pose_lm_batched_plain(T_init, Xw, uv, valid, K, info=None):
+    """Plain version of kernel B2's batched launcher over B problems.
+
+    T_init [B,4,4], Xw [B,E,3], uv [B,E,2], valid bool [B,E], K [B,3,3],
+    info [B,E] or None. Returns (T [B,4,4] orthonormalized, inlier bool [B,E]
+    ANDed with valid, n_good int32 [B]).
+    """
+    outs = [
+        pose_optimize_plain(T_init[i], Xw[i], uv[i], valid[i], K[i],
+                            None if info is None else info[i])
+        for i in range(Xw.shape[0])
+    ]
+    T, inlier, n_good = (torch.stack(x) for x in zip(*outs))
+    return T, inlier, n_good.to(torch.int32)
 
 
 def pose_optimize(T_init, Xw, uv, valid, K, info=None):
