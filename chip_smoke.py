@@ -34,11 +34,25 @@ line and raises if it fails:
                 view, orb.extract(per_level=True) against the one-launch
                 extract feature for feature, and the per-level path's launch
                 counts and times;
-  9. system   — System.track_monocular (two-view initialization, tracking,
+  9. system   — System.track_monocular in the reference-twin flow
+                (fusedTracking=False: two-view initialization, tracking,
                 local mapping with BA, loop detection) over 42 frames at
                 640x480 and 2000 features, 12 warm then 30 timed: frames/s,
                 latency, stage split, launches, ATE; then the same drive with
-                both kernels replaced by their plain versions.
+                both kernels replaced by their plain versions;
+ 10. system_fused — the same drive with SlamParameters' defaults, the fused
+                one-step flow (slam/fused_host.py), through the kernels and
+                through their plain versions: frames completed by run_steady,
+                run and the host path, fallbacks by reason, launches per
+                run_steady frame (B1 once, B2 twice), ATE, the trajectory
+                pair against the `system` drive;
+ 11. system_pipelined — the same through track_monocular_pipelined and
+                flush_pipeline, every dispatch_steady_spec under
+                torch.cuda.set_sync_debug_mode("error"): hits, misses,
+                skips, process / dispatch ms, the pair against system_fused;
+ 12. system_fused_kf — the fused flow at step 0.06, 8 warm + 30 timed
+                frames: keyframe events, context rebuilds and local BA inside
+                the timed window.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -55,6 +69,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 from unittest import mock
@@ -74,7 +89,7 @@ from mono_slam_framework_torch.ops import detect, orb  # noqa: E402
 from mono_slam_framework_torch.optim import pose_opt, pose_opt_cuda  # noqa: E402
 from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System  # noqa: E402
-from mono_slam_framework_torch.slam import fused_tracking  # noqa: E402
+from mono_slam_framework_torch.slam import fused_host, fused_tracking  # noqa: E402
 from mono_slam_framework_torch.slam.frame import reset_frame_ids  # noqa: E402
 from mono_slam_framework_torch.slam.map_model import reset_map_ids  # noqa: E402
 
@@ -650,6 +665,24 @@ SYSTEM_SMALL = SystemConfig(240, 320, 250.0, 400, 4, 24, 0.07)
 MAX_SYSTEM_KF_ATE = 3 * 0.004149
 MAX_SYSTEM_FRAME_ATE = 3 * 0.005103
 
+# The fused drives (phases system_fused, system_pipelined, system_fused_kf).
+# SYSTEM_KF is bench.py's keyframe-event regime (step 0.06: keyframe events,
+# ctx rebuilds and local BA fall inside the timed window).
+SYSTEM_KF = SystemConfig(480, 640, 500.0, 2000, 8, 30, 0.06)
+# run_steady completes at least 27 of 30 timed frames: the JAX package's
+# record of the pipelined regime (BENCH_r05.json, parsed.pipe_stats) shows
+# 30 dispatched and 30 hit, a count of events
+MIN_STEADY_SHARE = 27 / 30
+MAX_FUSED_PAIR_ATE = 0.05  # fused vs unfused, tests/test_fused.py:130
+MAX_PIPELINED_PAIR_ATE = 0.03  # pipelined vs fused, tests/test_fused.py:189
+# Bounds of the SYSTEM_FULL fused drive: three times the same drive with the
+# plain versions on a CPU (tools/torch_profile_system.py --flow fused
+# --device cpu, on the H100 machine's host: keyframe ATE 0.004149 over 3
+# keyframes, live-pose ATE 0.005035 over 38 frames, initialized on frame 4,
+# never lost, run_steady on all 30 timed frames).
+MAX_FUSED_KF_ATE = 3 * 0.004149
+MAX_FUSED_FRAME_ATE = 3 * 0.005035
+
 
 def render_system(cfg: SystemConfig):
     """(world, ground-truth poses, images) of the system drive, rendered
@@ -659,14 +692,21 @@ def render_system(cfg: SystemConfig):
     return world, poses, [world.render(T) for T in poses]
 
 
-def build_system(device, cfg: SystemConfig, world) -> System:
-    """bench.py's reference-twin System (fusedTracking=False) on `device`."""
+# the System's tracking flows: SlamParameters overrides per flow; "fused" is
+# the SlamParameters default (fusedTracking=True, fusedOneStep=True) and
+# "pipelined" drives it through track_monocular_pipelined
+FLOWS = {"unfused": {"fusedTracking": False}, "fused": {}, "pipelined": {}}
+
+
+def build_system(device, cfg: SystemConfig, world, flow: str = "unfused") -> System:
+    """bench.py's System on `device`, in one of FLOWS (default: the
+    reference-twin flow, fusedTracking=False)."""
     reset_frame_ids()
     reset_map_ids()
     params = SlamParameters(
         fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
         max_features=cfg.max_features, minIniMatchCount=100,
-        initializerModelFallback=True, fusedTracking=False,
+        initializerModelFallback=True, **FLOWS[flow],
     )
     matcher = OrbFeatureMatcher(threshold=RATIO, max_features=cfg.max_features,
                                 device=device)
@@ -678,38 +718,92 @@ def _pct(xs, q):
     return float(np.percentile(xs, q)) if len(xs) else None
 
 
-def run_system(device, cfg: SystemConfig, world, poses, images, system=None) -> dict:
-    """Drive System.track_monocular over every image (gate toggled), timing
-    the frames after cfg.n_warm (synchronized on a card). Returns the
-    drive's record: states, live poses, latency, stage split, launches, ATE."""
-    system = system or build_system(device, cfg, world)
+def _launches() -> dict:
+    return {"b1": detect.detect_maps_cuda.launches,
+            "b2": pose_opt_cuda.pose_lm_batched.launches}
+
+
+PATHS = ("done_steady", "done_two_program", "done_host")
+
+
+@contextlib.contextmanager
+def sync_free_dispatch():
+    """Run every fused_host.dispatch_steady_spec under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing op inside it
+    raises. Counts the dispatches checked."""
+    real = fused_host.dispatch_steady_spec
+    checked = {"dispatches": 0}
+
+    def dispatch(tracker, image):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            spec = real(tracker, image)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked["dispatches"] += spec is not None
+        return spec
+
+    with mock.patch.object(fused_host, "dispatch_steady_spec", dispatch):
+        yield checked
+
+
+def run_system(device, cfg: SystemConfig, world, poses, images, system=None,
+               flow: str = "unfused") -> dict:
+    """Drive the System over every image (gate toggled) in one of FLOWS,
+    timing the frames after cfg.n_warm. Each track_monocular call is
+    synchronized on a card; the pipelined flow is not (a call completes the
+    previous frame and queues the next), its timed window is the wall time
+    from the call that completes frame n_warm to the synchronization after
+    flush_pipeline. Returns the drive's record: states, live poses, latency,
+    stage split, launches, which path completed each frame, the fused flow's
+    counters, ATE."""
+    system = system or build_system(device, cfg, world, flow)
     system.toggle_initialization_allowed()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *_: None)
+    pipelined = flow == "pipelined"
+    step = system.track_monocular_pipelined if pipelined else system.track_monocular
+    stats = fused_host.pipe_stats(system.tracker)
     detect.detect_maps_cuda.launches = 0
     pose_opt_cuda.pose_lm_batched.launches = 0
-    states, Tcw, frame_ms, kf_event_ms = [], [], [], []
+    states, Tcw, frame_ms, kf_event_ms, frame_launches, frame_path = [], [], [], [], [], []
     n_kf_before = 0
-    t_timed = 0.0
-    for i, img in enumerate(images):
-        if i == cfg.n_warm:
+    t_timed = t_window = 0.0
+    stats0: dict = {}
+    n = len(images)
+    for call in range(n + pipelined):
+        done = call - pipelined  # the frame this call completes (-1: none)
+        if done == cfg.n_warm:
             system.timer.reset()
             n_kf_before = system.map.n_keyframes()
+            stats0 = dict(stats)
+            t_window = time.perf_counter()
+        before = (_launches(), {k: stats.get(k, 0) for k in PATHS})
         t0 = time.perf_counter()
-        system.track_monocular(img, timestamp=i * 0.1)
-        sync(device)
+        if call < n:
+            step(images[call], timestamp=call * 0.1)
+        else:
+            system.flush_pipeline()
+        if not pipelined:
+            sync(device)
         ms = (time.perf_counter() - t0) * 1e3
+        if done < 0:
+            continue
         states.append(system.tracker.state.name)
         T = system.tracker.current_frame.get_pose()
         Tcw.append(np.full((4, 4), np.nan, np.float32) if T is None else T)
-        if i >= cfg.n_warm:
+        frame_launches.append({k: v - before[0][k] for k, v in _launches().items()})
+        frame_path.append(next((k for k in PATHS if stats.get(k, 0) > before[1][k]), None))
+        if done >= cfg.n_warm:
             t_timed += ms
             frame_ms.append(ms)
             n_kf = system.map.n_keyframes()
             if n_kf != n_kf_before:
                 kf_event_ms.append(ms)
                 n_kf_before = n_kf
-    launches = {"b1": detect.detect_maps_cuda.launches,
-                "b2": pose_opt_cuda.pose_lm_batched.launches}
+    sync(device)
+    if pipelined:
+        t_timed = (time.perf_counter() - t_window) * 1e3
+    launches = _launches()
 
     gt_t = np.arange(len(images)) * 0.1
     gt_p = np.stack([-(T[:3, :3].T @ T[:3, 3]) for T in poses])
@@ -726,7 +820,15 @@ def run_system(device, cfg: SystemConfig, world, poses, images, system=None) -> 
     ate_frames, _ = trajectory.ate_rmse(gt_t[posed], centres[posed], gt_t, gt_p)
     first_ok = states.index("OK") if "OK" in states else None
     n_timed = len(frame_ms)
+    timed_paths = frame_path[cfg.n_warm:]
+    fused_stats = {k: v for k, v in stats.items() if not k.endswith("_samples_ms")}
+    timed_stats = {k: v - stats0.get(k, 0) for k, v in fused_stats.items()}
+    for k in ("process", "dispatch"):
+        samples = stats.get(f"{k}_samples_ms", [])[cfg.n_warm + 1:]
+        if samples:
+            fused_stats[f"{k}_p50_ms"] = _pct(samples, 50)
     return {
+        "flow": flow,
         "frames": len(images), "size": [cfg.h, cfg.w], "max_features": cfg.max_features,
         "states": states, "Tcw": Tcw,
         "first_ok_frame": first_ok,
@@ -742,6 +844,12 @@ def run_system(device, cfg: SystemConfig, world, poses, images, system=None) -> 
         "stage_ms_per_frame": {k: 1e3 * v / max(n_timed, 1)
                                for k, v in system.timer.totals.items()},
         "launches": launches,
+        "timed_paths": {"run_steady": timed_paths.count("done_steady"),
+                        "run": timed_paths.count("done_two_program"),
+                        "host": n_timed - timed_paths.count("done_steady")
+                        - timed_paths.count("done_two_program")},
+        "fused_stats": fused_stats, "timed_stats": timed_stats,
+        "frame_launches": frame_launches, "frame_path": frame_path,
         "system": system,
     }
 
@@ -765,8 +873,43 @@ def check_system_run(run: dict, kernels: bool) -> None:
 
 
 def system_record(run: dict) -> dict:
-    """run_system's record without the objects, for printing."""
-    return {k: v for k, v in run.items() if k not in ("Tcw", "system", "states")}
+    """run_system's record without the objects and per-frame lists, for
+    printing."""
+    return {k: v for k, v in run.items()
+            if k not in ("Tcw", "system", "states", "frame_launches", "frame_path")}
+
+
+def trajectory_pair(a: System, b: System) -> tuple:
+    """(ATE of a's per-frame trajectory against b's, frames associated):
+    trajectory.ate_rmse of both save_trajectory_tum exports
+    (tests/test_fused.py:117-130)."""
+    with tempfile.TemporaryDirectory() as d:
+        pa, pb = f"{d}/a.txt", f"{d}/b.txt"
+        a.save_trajectory_tum(pa)
+        b.save_trajectory_tum(pb)
+        return trajectory.ate_rmse(*trajectory.read_tum(pa)[:2], *trajectory.read_tum(pb)[:2])
+
+
+def check_fused_run(run: dict, kernels: bool) -> None:
+    """The fused drive's bounds: it initializes and is never lost,
+    run_steady completes at least MIN_STEADY_SHARE of the timed frames, both
+    ATEs stay within MAX_FUSED_*_ATE, and, through the kernels, every frame
+    run_steady completed launched B1 once and B2 twice."""
+    if run["first_ok_frame"] is None:
+        raise AssertionError("the System never initialized")
+    if run["lost_frames"] or run["not_ok_after_first_ok"]:
+        raise AssertionError(f"tracking was lost: {run['states']}")
+    if run["timed_paths"]["run_steady"] < MIN_STEADY_SHARE * run["timed_frames"]:
+        raise AssertionError(f"run_steady completed {run['timed_paths']} of "
+                             f"{run['timed_frames']} timed frames; {run['fused_stats']}")
+    if kernels:
+        bad = [i for i, (p, n) in enumerate(zip(run["frame_path"], run["frame_launches"]))
+               if p == "done_steady" and n != {"b1": 1, "b2": 2}]
+        if bad:
+            raise AssertionError(f"run_steady frames {bad} launched "
+                                 f"{[run['frame_launches'][i] for i in bad]}")
+    if not (run["ate_kf"] <= MAX_FUSED_KF_ATE and run["ate_frames"] <= MAX_FUSED_FRAME_ATE):
+        raise AssertionError(f"ATE keyframes {run['ate_kf']}, frames {run['ate_frames']}")
 
 
 def _print(rec):
@@ -790,6 +933,65 @@ def check_ptxas(ptxas: dict) -> None:
            if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
     if len(lm) != len(pose_opt_cuda.CLUSTERS) or bad:
         raise AssertionError(f"ptxas: pose_lm_kernel instances {lm}, with stack or spill {bad}")
+
+
+def fused_phases(dev, sys_cfg: SystemConfig, kf_cfg: SystemConfig, world_s, poses_s,
+                 images_s, run: dict) -> dict:
+    """Phases system_fused, system_pipelined and system_fused_kf (see the
+    module docstring); `run` is the `system` phase's drive through the
+    kernels, in the unfused flow. Returns the three drives' launches."""
+    kernels = dev.type == "cuda"
+
+    # ---- the default fused flow: run_steady, then run, then the host path ----
+    fused = run_system(dev, sys_cfg, world_s, poses_s, images_s, flow="fused")
+    with plain_kernels():
+        fused_plain = run_system(dev, sys_cfg, world_s, poses_s, images_s, flow="fused")
+    pair, n_pair = trajectory_pair(fused["system"], run["system"])
+    both = ~np.isnan(fused["Tcw"][:, 0, 0]) & ~np.isnan(fused_plain["Tcw"][:, 0, 0])
+    pose_diff = np.abs(fused["Tcw"][both] - fused_plain["Tcw"][both]).max(axis=(1, 2))
+    _print({"phase": "system_fused", **system_record(fused),
+            "plain": system_record(fused_plain),
+            "plain_pose_max_abs_diff_per_frame": pose_diff.tolist(),
+            "pair_ate_vs_unfused": pair, "pair_frames": n_pair,
+            "unfused_frame_p50_ms": run["frame_p50_ms"]})
+    check_fused_run(fused, kernels=kernels)
+    check_fused_run(fused_plain, kernels=False)
+    if not (pair < MAX_FUSED_PAIR_ATE and n_pair >= 10):
+        raise AssertionError(f"fused vs unfused trajectories: ATE {pair} over {n_pair} frames")
+
+    # ---- the pipelined mode: track_monocular_pipelined + flush_pipeline ----
+    # every dispatch on a card runs under the sync debug mode (the CPU has none)
+    checker = sync_free_dispatch() if kernels else contextlib.nullcontext({"dispatches": None})
+    with checker as checked:
+        pipe = run_system(dev, sys_cfg, world_s, poses_s, images_s, flow="pipelined")
+    pair_p, n_pair_p = trajectory_pair(pipe["system"], fused["system"])
+    st = pipe["fused_stats"]
+    misses = sum(v for k, v in st.items() if k.startswith("miss_"))
+    _print({"phase": "system_pipelined", **system_record(pipe),
+            "pair_ate_vs_fused": pair_p, "pair_frames": n_pair_p,
+            "sync_free_dispatches": checked["dispatches"]})
+    if pipe["lost_frames"] or pipe["not_ok_after_first_ok"] or pipe["first_ok_frame"] is None:
+        raise AssertionError(f"pipelined tracking was lost: {pipe['states']}")
+    if pipe["timed_stats"].get("hit", 0) < MIN_STEADY_SHARE * pipe["timed_frames"]:
+        raise AssertionError(f"pipelined hits {pipe['timed_stats']} over "
+                             f"{pipe['timed_frames']} timed frames")
+    if st["hit"] + misses > st["dispatch"]:
+        raise AssertionError(f"hits + misses exceed dispatches: {st}")
+    if not (pair_p < MAX_PIPELINED_PAIR_ATE and n_pair_p >= 10):
+        raise AssertionError(f"pipelined vs fused: ATE {pair_p} over {n_pair_p} frames")
+    if kernels and checked["dispatches"] < 1:
+        raise AssertionError("no dispatch_steady_spec ran under the sync debug mode")
+
+    # ---- the keyframe-event regime: step 0.06, 8 warm + 30 timed ----
+    world_k, poses_k, images_k = render_system(kf_cfg)
+    kf_run = run_system(dev, kf_cfg, world_k, poses_k, images_k, flow="fused")
+    _print({"phase": "system_fused_kf", **system_record(kf_run),
+            "ctx_builds_timed": kf_run["timed_stats"].get("ctx_builds", 0)})
+    if kf_run["lost_frames"] or kf_run["not_ok_after_first_ok"] or kf_run["first_ok_frame"] is None:
+        raise AssertionError(f"keyframe regime tracking was lost: {kf_run['states']}")
+    if kf_run["kf_events"] < 1:
+        raise AssertionError("no keyframe event in the keyframe regime's timed window")
+    return {k: sum(r["launches"][k] for r in (fused, pipe, kf_run)) for k in ("b1", "b2")}
 
 
 def main() -> int:
@@ -944,6 +1146,8 @@ def main() -> int:
     check_system_run(run, kernels=True)
     check_system_run(plain_run, kernels=False)
 
+    fused_launches = fused_phases(dev, sys_cfg, SYSTEM_KF, world_s, poses_s, images_s, run)
+
     b1_stack_bound = b1_bound(dims, stacked=True)
     banded_bound = b1_bound(banded_dims, stacked=False)
     full_bound = b1_bound(full_dims, stacked=False)
@@ -953,7 +1157,7 @@ def main() -> int:
         {"name": "detect_maps", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
-         "launches": n_b1 + run["launches"]["b1"],
+         "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"],
          "max_abs_err": max(b1["max_abs_err"].values()),
          "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_stack_bound[0],
@@ -977,7 +1181,8 @@ def main() -> int:
         {"name": "pose_lm", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
-         "launches": n_b2 + run["launches"]["b2"], "max_abs_err": b2["edges_2000"]["T_max_abs_err"],
+         "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"],
+         "max_abs_err": b2["edges_2000"]["T_max_abs_err"],
          "ms": b2_ms, "wrapper_ms": b2_wrapper_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_b[0],
          "bound_by": b2_b[1], "library_ms": None, "design": DESIGN},

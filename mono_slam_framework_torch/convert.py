@@ -1,8 +1,9 @@
 """Carries state between numpy (and so the JAX package) and the port.
 
 The ORB path has no weights; what crosses over is state: a frame's
-Features, the steady step's tables, a bundle-adjustment problem and the host
-map (keyframes, map points, observations, covisibility). Field names match
+Features, the steady step's tables, the fused flow's local-map context, a
+bundle-adjustment problem and the host map (keyframes, map points,
+observations, covisibility). Field names match
 the JAX package's. Descriptors keep their bits: uint32 words become int32
 words through `.view`, never through a value cast.
 
@@ -105,6 +106,36 @@ def steady_inputs_from_numpy(
         f32(ctx_maxdist),
         f32(K),
     )
+
+
+def fused_ctx_to_numpy(ctx: dict) -> dict:
+    """slam/fused_host.py's local-map context as numpy, under the JAX ctx's
+    key names and at the port's sizes (the JAX ctx pads its row space to a
+    ladder capacity and its keyframe slots to a power of two; the port's
+    tables are its unpadded prefix). `mps` becomes the map-point ids by row,
+    `row_of` the {map-point id: row} map, `kf_feats` is left out."""
+    nrows = ctx["rcap"]
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "key": ctx["key"],
+        "n_kf": ctx["n_kf"],
+        "rcap": nrows,
+        "mps": [mp.id for mp in ctx["mps"]],
+        "row_of": {mp.id: ctx["row_of"][id(mp)] for mp in ctx["mps"]},
+        "first_slot": ctx["first_slot"].copy(),
+        "pos": ctx["pos"].copy(),
+        "normal": ctx["normal"].copy(),
+        "maxdist": ctx["maxdist"].copy(),
+        "kf_px": host(ctx["kf_px"]),
+        "kf_row": host(ctx["kf_row"]),
+        "first_slot_d": host(ctx["first_slot_d"]),
+        "normal_d": host(ctx["normal_d"]),
+        "maxdist_d": host(ctx["maxdist_d"]),
+        "mp_pos_d": host(ctx["mp_pos_d"])[:nrows],
+    }
 
 
 def ba_problem_from_numpy(p, device=device_mod.DEFAULT) -> BAProblem:

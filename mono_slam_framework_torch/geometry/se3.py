@@ -96,11 +96,7 @@ def exp_se3(xi):
     I = _eye3(xi)
     R = I + A[..., None, None] * W + B[..., None, None] * W2
     V = I + B[..., None, None] * W + C[..., None, None] * W2
-    T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = (V @ v[..., None])[..., 0]
-    T[..., 3, 3] = 1.0
-    return T
+    return _from_rt(R, V @ v[..., None])
 
 
 def log_se3(T):
@@ -124,14 +120,18 @@ def log_se3(T):
     return torch.cat([w, v], dim=-1)
 
 
+def _from_rt(R, t):
+    """[..., 3, 3] rotation and [..., 3, 1] translation -> [..., 4, 4]. Built
+    by concatenation: writing a Python scalar into a CUDA tensor copies it
+    from the host and synchronizes."""
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:]
+    return torch.cat([torch.cat([R, t], -1), bottom.expand(*R.shape[:-2], 1, 4)], -2)
+
+
 def inverse(T):
     """Exact SE3 inverse."""
     Rt = T[..., :3, :3].transpose(-1, -2)
-    out = torch.zeros_like(T)
-    out[..., :3, :3] = Rt
-    out[..., :3, 3] = -(Rt @ T[..., :3, 3:])[..., 0]
-    out[..., 3, 3] = 1.0
-    return out
+    return _from_rt(Rt, -(Rt @ T[..., :3, 3:]))
 
 
 def camera_center(Tcw):

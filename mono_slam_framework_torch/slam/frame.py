@@ -1,8 +1,8 @@
 """Frames and the pixel -> map-point association table.
 
-A copy of `mono_slam_framework_tpu/slam/frame.py` (host-side numpy) without
-what only the fused paths use (the association table's version counter and
-bulk insert). Capability twins of the reference's FrameBase/Frame/FrameFactory
+A copy of `mono_slam_framework_tpu/slam/frame.py` (host-side numpy),
+including what the fused paths use: the association table's version counter
+(the key of slam/fused_host.py's caches) and its bulk insert. Capability twins of the reference's FrameBase/Frame/FrameFactory
 (slam_pipeline/include/FrameBase.h, Frame.h, src/FrameBase.cc, Frame.cc) and
 KeyPointMap (include/KeyPointMap.h, src/KeyPointMap.cc).
 
@@ -45,6 +45,9 @@ class KeyPointMap:
         self.cols = int(cols)
         self.rows = int(rows)
         self._items: dict[int, MapPointItem] = {}
+        # bumped on every structural change; consumers (the fused tracking
+        # path) cache derived arrays keyed by (owner id, version)
+        self.version = 0
 
     def clone(self) -> "KeyPointMap":
         m = KeyPointMap(self.cols, self.rows)
@@ -56,6 +59,7 @@ class KeyPointMap:
 
     def clear(self) -> None:
         self._items.clear()
+        self.version += 1
 
     def index_of(self, keypoint) -> int:
         x, y = int(keypoint[0]), int(keypoint[1])
@@ -79,9 +83,19 @@ class KeyPointMap:
             self._items[idx] = MapPointItem(
                 map_point, measurement=measurement, info=float(info)
             )
+        self.version += 1
 
     def set_map_point_by_index(self, index: int, map_point) -> None:
         self.set_map_point(self.keypoint_from_index(index), map_point)
+
+    def bulk_set_map_points(self, indices, map_points, measurements, infos) -> None:
+        """Vectorized SetMapPoint over precomputed pixel indices (the fused
+        replay path: coordinates already validated on the device, pixel
+        uniqueness already resolved). One version bump for the batch."""
+        items = self._items
+        for idx, mp, meas, info in zip(indices, map_points, measurements, infos):
+            items[idx] = MapPointItem(mp, measurement=meas, info=info)
+        self.version += 1
 
     def measurement_at(self, index: int):
         """Float measurement for an association (defaults to the pixel key)."""

@@ -17,7 +17,9 @@ minus host bookkeeping):
 Outputs are separate tensors in NamedTuples (no packed readback). The
 `chain_px` / `union_row` / `T2` outputs of `steady_step` are the next
 frame's `prev_px` / `prev_row` / motion-model input (`chain_T_init`), the
-device-resident chain of the pipelined host mode.
+device-resident chain of the pipelined host mode. `HostCopy` brings the
+fields the host replay reads (`steady_fields`, `motion_fields`,
+`local_fields`) back with one synchronization.
 
 Host bookkeeping semantics are kept on the device side exactly as in the
 JAX package: per-pixel last-writer-wins for motion associations
@@ -310,3 +312,60 @@ def chain_T_init(T_prev, T_prev2):
     """The motion model on the device: T_init = velocity @ T_prev with
     velocity = T_prev @ inv(T_prev2) (Tracking.cc:155-165)."""
     return T_prev @ se3.inverse(T_prev2) @ T_prev
+
+
+def motion_fields(cur: orb.Features, motion: MotionOut) -> dict:
+    """What the host replay reads of a motion step (the JAX package's
+    `_motion_pack` fields the replay unpacks), by name."""
+    return {
+        "T1": motion.T1, "n_matches": motion.n_matches, "row": motion.row,
+        "keep": motion.keep, "inlier": motion.inlier, "idx2": motion.idx2,
+        "ok": motion.ok, "xy": cur.xy, "octave": cur.octave,
+    }
+
+
+def local_fields(local: LocalOut) -> dict:
+    """What the host replay reads of a local step, by name."""
+    return {"T2": local.T2, "new_row": local.new_row, "inlier2": local.inlier,
+            "vis": local.vis}
+
+
+def steady_fields(out: SteadyOut) -> dict:
+    """What the host replay reads of a steady step, by name."""
+    return {**motion_fields(out.cur, out.motion), **local_fields(out.local)}
+
+
+class HostCopy:
+    """A device->host copy of named tensors with ONE synchronization.
+
+    On a card the copies start at construction: each tensor goes into a
+    pinned host tensor of its own dtype with `non_blocking=True`, then one
+    CUDA event is recorded behind them on the current stream. `wait()`
+    synchronizes on that event once and returns numpy arrays. The device
+    tensors stay referenced until then. On the CPU there is nothing to copy.
+    """
+
+    def __init__(self, tensors: dict):
+        device = next(iter(tensors.values())).device
+        self._event = None
+        self._src = None
+        if device.type == "cuda":
+            self._host = {
+                k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in tensors.items()
+            }
+            for k, v in tensors.items():
+                self._host[k].copy_(v, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+            self._src = tensors
+        else:
+            self._host = {k: v.detach() for k, v in tensors.items()}
+
+    def wait(self) -> dict:
+        """The fields as numpy arrays, after the copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+            self._src = None
+        return {k: v.numpy() for k, v in self._host.items()}

@@ -15,8 +15,8 @@ snapshots of these tables as arrays (see slam/device_io.py).
 
 A copy of `mono_slam_framework_tpu/slam/map_model.py` with its pure-Python
 observation store, which is what the JAX package's `Map(use_native_graph=
-False)` runs; the native C++ observation graph is not ported, nor what only
-the fused paths and checkpoints read (the geometry epoch counter).
+False)` runs; the native C++ observation graph is not ported. The geometry
+epoch counter is: slam/fused_host.py keys its cached device tables on it.
 """
 
 from __future__ import annotations
@@ -73,6 +73,9 @@ class Map:
         self.map_points: "_OrderedSet" = _OrderedSet()
         self.max_kf_id = 0
         self.big_change_idx = 0
+        # bumped on every map-point position/normal change; device-side
+        # caches of geometry tables (fused tracking ctx) key on this
+        self.geometry_epoch = 0
         self.keyframe_origins: list = []
 
     def add_keyframe(self, kf) -> None:
@@ -157,6 +160,8 @@ class MapPoint:
 
     def set_world_pos(self, pos) -> None:
         self.world_pos = np.asarray(pos, np.float32).reshape(3).copy()
+        if self.map is not None:
+            self.map.geometry_epoch += 1
 
     def get_world_pos(self) -> np.ndarray:
         return self.world_pos.copy()
@@ -255,6 +260,8 @@ class MapPoint:
         self.normal = (normal / len(self.observations)).astype(np.float32)
         pc = self.world_pos - self.ref_kf.get_camera_center()
         self.distance = float(np.linalg.norm(pc))
+        if self.map is not None:
+            self.map.geometry_epoch += 1
 
     def distance_invariance(self) -> float:
         return 1.2 * self.distance  # MapPoint.cc:222

@@ -8,19 +8,25 @@ sequential by design (reference difference #4): tracker ->
 LocalMapping.run() -> LoopClosing.run() (System.cc:63-75).
 
 Every device op runs on the System's `device` (the card unless the caller
-asks for the CPU); the matcher must extract on the same device. This slice
-runs the reference-twin flow (`fusedTracking=False`). Not ported yet, and
-raising when called: the live viewer (`start_gui`), checkpoints,
-relocalization and loop correction (ROADMAP §A).
+asks for the CPU); the matcher must extract on the same device. Tracking
+runs the default fused flow (`fusedTracking=True`, `fusedOneStep=True`:
+slam/fused_host.py) or the reference-twin flow (`fusedTracking=False`);
+`track_monocular_pipelined` overlaps each frame's device work with the
+caller's next frame. Not ported yet, and raising when called: the live
+viewer (`start_gui`), checkpoints, relocalization and loop correction
+(ROADMAP §A).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from mono_slam_framework_torch import device as device_mod
 from mono_slam_framework_torch.geometry import se3
+from mono_slam_framework_torch.slam import fused_host
 from mono_slam_framework_torch.slam.frame import FrameFactory
 from mono_slam_framework_torch.slam.local_mapping import LocalMapping
 from mono_slam_framework_torch.slam.loop_closing import LoopClosing
@@ -99,6 +105,43 @@ class System:
         with self.timer.stage("loop_closing"):
             self.loop_closer.run()
         self._current_position = tcw
+
+    def track_monocular_pipelined(self, image, timestamp: float):
+        """Throughput mode (requires `fusedOneStep`): processes the PREVIOUS
+        frame and speculatively dispatches THIS frame's steady step from the
+        last frame's device-resident chain state
+        (fused_host.dispatch_steady_spec): the device work and its copy to
+        the host overlap the caller's next-frame time, so steady frames cost
+        roughly the host replay alone. One-frame latency: returns the
+        previous frame's `last_metrics` (None on the first call);
+        poses/maps reflect the last COMPLETED frame. Call `flush_pipeline()`
+        after the final frame.
+        """
+        out = None
+        prev = getattr(self, "_pipe_prev", None)
+        t0 = time.perf_counter()
+        if prev is not None:
+            self.track_monocular(*prev)
+            out = self.last_metrics
+        t1 = time.perf_counter()
+        self._pipe_prev = (image, timestamp)
+        self.tracker._pipe_spec = fused_host.dispatch_steady_spec(self.tracker, image)
+        # per-call samples: process_ms = the previous frame's processing,
+        # dispatch_ms = the host cost of queueing the next frame's step
+        s = fused_host.pipe_stats(self.tracker)
+        s.setdefault("process_samples_ms", []).append((t1 - t0) * 1e3)
+        s.setdefault("dispatch_samples_ms", []).append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def flush_pipeline(self):
+        """Complete the pending pipelined frame (if any)."""
+        prev = getattr(self, "_pipe_prev", None)
+        self._pipe_prev = None
+        self.tracker._pipe_spec = None
+        if prev is not None:
+            self.track_monocular(*prev)
+            return self.last_metrics
+        return None
 
     def map_changed(self) -> bool:
         """Big-change polling (System.cc:77-85)."""

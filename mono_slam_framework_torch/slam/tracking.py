@@ -12,9 +12,10 @@ data-dependent branching run here in Python; every numeric stage is a device
 call on the tracker's `device` (matcher, batched frustum test, pose LM —
 kernel B2 on a card — and init RANSAC).
 
-PyTorch counterpart of `mono_slam_framework_tpu/slam/tracking.py`, the
-unfused reference-twin flow (`fusedTracking=False`). Not ported yet: the
-fused steady branches (`fusedTracking=True`, refused at construction) and
+PyTorch counterpart of `mono_slam_framework_tpu/slam/tracking.py`: the
+fused steady branches (`fusedTracking=True`, the `SlamParameters` default:
+slam/fused_host.py's `run_steady`, then `run`, then the reference-twin host
+path) and the unfused flow (`fusedTracking=False`). Not ported yet:
 relocalization (EPnP), which raises (ROADMAP §A).
 """
 
@@ -27,6 +28,7 @@ import torch
 
 from mono_slam_framework_torch.estimation import Initializer
 from mono_slam_framework_torch.geometry import projection
+from mono_slam_framework_torch.slam import fused_host
 from mono_slam_framework_torch.slam.device_io import optimize_frame_pose, run_global_ba
 from mono_slam_framework_torch.slam.frame import Frame
 from mono_slam_framework_torch.slam.map_model import MapPoint
@@ -56,12 +58,6 @@ class Tracking:
         verbose: bool = True,
         device: torch.device | str = "cuda",
     ):
-        if getattr(params, "fusedTracking", False):
-            raise NotImplementedError(
-                "fusedTracking=True (the fused steady path around "
-                "slam/fused_tracking.steady_step): ROADMAP §A; pass "
-                "fusedTracking=False for the reference-twin flow"
-            )
         self.device = torch.device(device)
         self.state = TrackingState.NO_IMAGES_YET
         self.map_drawer = map_drawer
@@ -148,6 +144,10 @@ class Tracking:
         self.minimum_keyframes = n
 
     def get_current_match_image(self):
+        pending = getattr(self, "_match_image_pending", None)
+        if pending is not None:
+            self._match_image_pending = None
+            self.current_match_image = render_match_image(*pending)
         return self.current_match_image
 
     # ------------------------------------------------------------------
@@ -171,6 +171,7 @@ class Tracking:
                 return
         else:
             ok = False
+            fused_done = False
             if self.state == TrackingState.OK:
                 self.check_replaced_in_last_frame()
                 if (
@@ -179,15 +180,35 @@ class Tracking:
                 ):
                     ok = self.track_reference_keyframe()
                 else:
-                    ok = self.track_with_motion_model()
-                    if not ok:
-                        ok = self.track_reference_keyframe()
+                    # fused fast path: motion-model + local-map tracking as
+                    # device calls (slam/fused_tracking.py) with replayed
+                    # reference semantics; None means its preconditions
+                    # failed -> the unfused reference flow
+                    fused = None
+                    if fused_host.applicable(self):
+                        if getattr(self.params, "fusedOneStep", False):
+                            fused = fused_host.run_steady(self)
+                            if fused is not None:
+                                fused_host.count(self, "done_steady")
+                        if fused is None:
+                            fused = fused_host.run(self)
+                            if fused is not None:
+                                fused_host.count(self, "done_two_program")
+                        if fused is None:
+                            fused_host.count(self, "done_host")
+                    if fused is not None:
+                        ok = fused
+                        fused_done = True
+                    else:
+                        ok = self.track_with_motion_model()
+                        if not ok:
+                            ok = self.track_reference_keyframe()
             else:
                 ok = self.relocalization()
 
             self.current_frame.reference_kf = self.reference_kf
 
-            if ok:
+            if ok and not fused_done:
                 ok = self.track_local_map()
             if ok:
                 self.state = TrackingState.OK
@@ -383,10 +404,15 @@ class Tracking:
     # ------------------------------------------------------------------
     def check_replaced_in_last_frame(self) -> None:
         """Heal fused map-point pointers (Tracking.cc:365-378)."""
+        healed = 0
         for _, item in self.last_frame.keypoint_map.items():
             mp = item.map_point
             if mp is not None and mp.replaced_by is not None:
                 item.map_point = mp.replaced_by
+                healed += 1
+        if healed:
+            # structural change: invalidate version-keyed caches
+            self.last_frame.keypoint_map.version += 1
 
     def _associate_and_optimize(self, match_result) -> int | None:
         """Shared body of TrackReferenceKeyFrame / TrackWithMotionModel:
@@ -659,7 +685,15 @@ class Tracking:
             self.matcher.drop_frame_cache()
 
     # ------------------------------------------------------------------
-    def create_current_match_image(self, match_result) -> None:
+    def create_current_match_image(self, match_result, has_mp=None) -> None:
         """Side-by-side match rendering (Tracking.cc:899-940, quirk B6: always
-        rebuilt; part of the public API via GetCurrentMatchImage)."""
-        self.current_match_image = render_match_image(match_result)
+        rebuilt; part of the public API via GetCurrentMatchImage). `has_mp`
+        lets device-side callers skip the per-match map lookups, and since
+        it freezes the match classification at creation time, the pixel
+        drawing itself defers to the first GetCurrentMatchImage query
+        (identical output; the frame images are immutable)."""
+        if has_mp is None:
+            self._match_image_pending = None
+            self.current_match_image = render_match_image(match_result)
+        else:
+            self._match_image_pending = (match_result, has_mp)

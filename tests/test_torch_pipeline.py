@@ -4,8 +4,9 @@ chip_smoke.run_system, held to that test's own bounds: OK on all but at most
 4 frames after the first OK, >= 2 keyframes, > 50 map points, keyframe ATE
 < 0.15 and early per-frame ATE < 0.05 (scale-aligned, from the TUM
 exports). Also the public API around it (match image, metrics, reset), the
-initialization gate, the entry points' default device, and what this slice
-refuses with NotImplementedError.
+initialization gate, the entry points' default device, that the default
+(fused) parameters build a System, and what the port still refuses with
+NotImplementedError.
 """
 
 import inspect
@@ -127,12 +128,9 @@ def test_system_refuses_another_device_than_its_matcher():
 
 def test_unported_paths_raise():
     world = chip_smoke.sim.PlaneWorld()
-    with pytest.raises(NotImplementedError, match="fusedTracking"):
-        _system(world, fusedTracking=True)
-    # SlamParameters' default is the fused flow: refused as well
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _system(world)
-    system = _system(world, fusedTracking=False)
+    # SlamParameters' default is the fused flow, which is ported
+    system = _system(world)
+    assert system.params.fusedTracking and system.params.fusedOneStep
     with pytest.raises(NotImplementedError, match="relocalization"):
         system.tracker.relocalization()
     with pytest.raises(NotImplementedError, match="loop correction"):
