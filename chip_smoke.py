@@ -52,7 +52,18 @@ line and raises if it fails:
                 skips, process / dispatch ms, the pair against system_fused;
  12. system_fused_kf — the fused flow at step 0.06, 8 warm + 30 timed
                 frames: keyframe events, context rebuilds and local BA inside
-                the timed window.
+                the timed window;
+ 13. reloc_loop — the JAX package's quality drive (the hard world at
+                320x240, 2000 features, the 141-pose rect loop) with two flat
+                frames after frame 10, in the default fused flow: the loss and
+                its relocalization (EPnP, then B2), the OK share, the keyframe
+                poses, B1 / B2 launches, frames/s, and whether the genuine loop
+                fired (with the ATE just before and after its correction);
+                then test_reloc_loop.py's deterministic loop at 2000 features
+                with pre-alignment off (the staged-GBA invariants) and on (a
+                drifted revisit: the Sim(3) fit and the essential graph run
+                and move the revisit toward its place), the fused ctx rebuilt
+                after each correction.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -91,7 +102,7 @@ from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System  # noqa: E402
 from mono_slam_framework_torch.slam import fused_host, fused_tracking  # noqa: E402
 from mono_slam_framework_torch.slam.frame import reset_frame_ids  # noqa: E402
-from mono_slam_framework_torch.slam.map_model import reset_map_ids  # noqa: E402
+from mono_slam_framework_torch.slam.map_model import MapPoint, reset_map_ids  # noqa: E402
 
 RATIO = 0.7
 FAST_THRESHOLD = 20.0
@@ -912,6 +923,379 @@ def check_fused_run(run: dict, kernels: bool) -> None:
         raise AssertionError(f"ATE keyframes {run['ate_kf']}, frames {run['ate_frames']}")
 
 
+# ---------------------------------------------------------------------------
+# relocalization and loop correction
+
+
+class LoopConfig(NamedTuple):
+    max_features: int
+    step: float  # rect_loop_trajectory step
+    drop_at: int  # two flat frames are fed after this frame of the drive
+    n_flat: int
+
+
+# The JAX package's quality drive (quality_bench.run_quality(force_cpu=False):
+# the hard world at 320x240, f = 250, 2000 features, the rect loop at pace
+# 0.075, 141 poses) with test_hard_world.py's dropout leg (two flat frames
+# after frame 10)
+LOOP_FULL = LoopConfig(2000, 0.075, 10, 2)
+MIN_OK_SHARE = 0.8  # test_hard_world.py:137
+MAX_LOST_DELAY = 3  # frames from the dropout to LOST
+MAX_ORTHO_ERR = 1e-4  # |R R^T - I| of every keyframe (test_reloc_loop.py:198)
+
+
+def render_loop(cfg: LoopConfig):
+    """(world, ground-truth poses, images) of the quality drive."""
+    world = sim.PlaneWorld(plane_z=2.0, second_plane=sim.RECT_LOOP_PLANES, texture="smooth")
+    poses = sim.rect_loop_trajectory(3.0, 2.2, cfg.step)
+    return world, poses, [world.render(T) for T in poses]
+
+
+def frame_ate(system: System, gt_t, gt_p):
+    """Scale-aligned ATE of the System's per-frame trajectory export against
+    ground truth, None under 10 associated frames (quality_bench's ate_now)."""
+    with tempfile.TemporaryDirectory() as d:
+        system.save_trajectory_tum(f"{d}/fr.txt")
+        t_fr, p_fr, _ = trajectory.read_tum(f"{d}/fr.txt")
+    if len(t_fr) < 3:
+        return None
+    a, n = trajectory.ate_rmse(t_fr, p_fr, np.asarray(gt_t), np.stack(gt_p))
+    return float(a) if n >= 10 else None
+
+
+def pose_ortho_errors(system: System):
+    """(all keyframe poses finite, the largest |R R^T - I| over them)."""
+    kfs = [kf for kf in system.map.all_keyframes() if not kf.is_bad]
+    T = np.stack([kf.get_pose() for kf in kfs]).astype(np.float64)
+    R = T[:, :3, :3]
+    err = np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max()
+    return bool(np.isfinite(T).all()), float(err)
+
+
+@contextlib.contextmanager
+def loop_spies(system: System, sync):
+    """Record every relocalization attempt (frame, candidates, EPnP
+    correspondences, hypotheses and inliers, the pose LM's n_good, success,
+    ms, B2 launches) and the loop correction's steps (essential graph, loop
+    GBA, propagation: ms each), without changing what they compute."""
+    from mono_slam_framework_torch.estimation import epnp
+    from mono_slam_framework_torch.slam import loop_closing, tracking
+
+    tr, lc = system.tracker, system.loop_closer
+    log = {"reloc": [], "graph_ms": [], "gba_ms": [], "gba_total_ms": []}
+    real = {"reloc": tr.relocalization, "cands": system.kf_db.detect_relocalization_candidates,
+            "pnp": epnp.solve_pnp_ransac, "lm": tracking.optimize_frame_pose,
+            "graph": loop_closing.optimize_pose_graph_np, "gba": loop_closing.run_global_ba,
+            "gba_total": lc.run_global_bundle_adjustment}
+    attempt: dict = {}
+
+    def cands(frame):
+        out = real["cands"](frame)
+        attempt["candidates"] = len(out)
+        return out
+
+    def pnp(X, uv, K, generator, **kw):
+        n_min, hyp = epnp.ransac_iterations(len(X), kw["probability"], kw["min_inliers"],
+                                            kw["max_iterations"])
+        ok, T, inl = real["pnp"](X, uv, K, generator, **kw)
+        attempt.setdefault("epnp", []).append({
+            "correspondences": len(X), "hypotheses": hyp, "min_inliers": n_min,
+            "inliers": int(np.sum(inl)), "ok": ok})
+        return ok, T, inl
+
+    def lm(frame, device):
+        n = real["lm"](frame, device)
+        attempt.setdefault("n_good", []).append(n)
+        return n
+
+    def reloc():
+        attempt.clear()
+        b2 = pose_opt_cuda.pose_lm_batched.launches
+        t0 = time.perf_counter()
+        with mock.patch.object(tracking, "optimize_frame_pose", lm), \
+                mock.patch.object(tracking.epnp, "solve_pnp_ransac", pnp):
+            ok = real["reloc"]()
+        sync()
+        log["reloc"].append({"frame": tr.current_frame.id, **attempt, "success": ok,
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "b2_launches": pose_opt_cuda.pose_lm_batched.launches - b2})
+        return ok
+
+    def timed(key, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            log[f"{key}_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    tr.relocalization = reloc
+    system.kf_db.detect_relocalization_candidates = cands
+    lc.run_global_bundle_adjustment = timed("gba_total", real["gba_total"])
+    try:
+        with mock.patch.object(loop_closing, "optimize_pose_graph_np", timed("graph", real["graph"])), \
+                mock.patch.object(loop_closing, "run_global_ba", timed("gba", real["gba"])):
+            yield log
+    finally:
+        tr.relocalization = real["reloc"]
+        system.kf_db.detect_relocalization_candidates = real["cands"]
+        lc.run_global_bundle_adjustment = real["gba_total"]
+
+
+def run_loop_drive(device, cfg: LoopConfig, world, poses, images) -> dict:
+    """The quality drive through System.track_monocular in the default fused
+    flow: set_minimum_keyframes(0), the initialization gate re-pressed
+    whenever the state is NO_IMAGES_YET, cfg.n_flat flat frames after frame
+    cfg.drop_at, correct_loop spied for the ATE just before and after it
+    (quality_bench.py:164-181). Returns the drive's record and the System."""
+    reset_frame_ids()
+    reset_map_ids()
+    params = SlamParameters(fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
+                            max_features=cfg.max_features, minIniMatchCount=70,
+                            initializerModelFallback=True)
+    matcher = OrbFeatureMatcher(threshold=RATIO, max_features=cfg.max_features, device=device)
+    system = System(params, matcher, KeyFrameMatchDatabase(matcher), verbose=False,
+                    device=device)
+    system.toggle_initialization_allowed()
+    system.set_minimum_keyframes(0)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *_: None)
+    stats = fused_host.pipe_stats(system.tracker)
+    lc = system.loop_closer
+    gt_t, gt_p = [], []
+    loops = []
+    frame_no = [0]
+    real_correct = lc.correct_loop
+
+    def spy_correct():
+        before = frame_ate(system, gt_t, gt_p)
+        ctx0 = stats.get("ctx_builds", 0)
+        t0 = time.perf_counter()
+        real_correct()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        loops.append({"frame": frame_no[0], "kf": lc.current_kf.id,
+                      "matched_kf": lc.matched_kf.id, "fused": lc.last_fuse_count,
+                      "prealign": lc.last_prealign, "ms": ms,
+                      "ate_before": before, "ate_after": frame_ate(system, gt_t, gt_p),
+                      "ctx_builds_at_loop": ctx0})
+
+    lc.correct_loop = spy_correct
+    detect.detect_maps_cuda.launches = 0
+    pose_opt_cuda.pose_lm_batched.launches = 0
+    states, frame_ms, kf_event_ms = [], [], []
+    dropout_index = None
+    t = 0.0
+    t_drive = time.perf_counter()
+    with loop_spies(system, sync) as log:
+        feed = []
+        for i, T in enumerate(poses):
+            feed.append((i, images[i], T))
+            if i == cfg.drop_at:
+                feed += [(i, None, None)] * cfg.n_flat
+        for i, img, T in feed:
+            frame_no[0] = i
+            n_kf = system.map.n_keyframes()
+            t0 = time.perf_counter()
+            if img is None:
+                dropout_index = len(states) if dropout_index is None else dropout_index
+                system.track_monocular(np.full((world.h, world.w), 128.0, np.float32), t)
+            else:
+                system.track_monocular(img, t)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            frame_ms.append(ms)
+            if system.map.n_keyframes() != n_kf:
+                kf_event_ms.append(ms)
+            if img is not None:
+                gt_t.append(t)
+                gt_p.append(-(T[:3, :3].T @ T[:3, 3]))
+            states.append(system.tracker.state.name)
+            t += 0.1
+            if system.tracker.state.name == "NO_IMAGES_YET":
+                system.toggle_initialization_allowed()
+    wall_s = time.perf_counter() - t_drive
+    lc.correct_loop = real_correct
+    lost = [k for k, s in enumerate(states) if s == "LOST"]
+    finite, ortho = pose_ortho_errors(system)
+    return {
+        "frames": len(states), "poses": len(poses), "size": [world.h, world.w],
+        "max_features": cfg.max_features,
+        "states": states, "state_counts": {s: states.count(s) for s in set(states)},
+        "dropout_index": dropout_index, "first_lost_index": lost[0] if lost else None,
+        "ok_share": sum(s == "OK" for s in states) / len(states),
+        "final_state": states[-1],
+        "reloc_attempts": log["reloc"],
+        "last_reloc_frame_id": system.tracker.last_reloc_frame_id,
+        "loop_detected": lc.last_loop_kf_id > 0, "loops": loops,
+        "graph_ms": log["graph_ms"], "gba_ms": log["gba_ms"],
+        "propagation_ms": [a - b for a, b in zip(log["gba_total_ms"], log["gba_ms"])],
+        "final_ate": frame_ate(system, gt_t, gt_p),
+        "keyframes": system.map.n_keyframes(), "map_points": system.map.n_map_points(),
+        "poses_finite": finite, "max_ortho_err": ortho,
+        "launches": _launches(),
+        "fps": len(states) / wall_s, "wall_s": wall_s,
+        "frame_p50_ms": _pct(frame_ms, 50), "frame_p95_ms": _pct(frame_ms, 95),
+        "kf_events": len(kf_event_ms), "kf_event_p95_ms": _pct(kf_event_ms, 95),
+        "fused_stats": {k: v for k, v in stats.items() if not k.endswith("_samples_ms")},
+        "system": system,
+    }
+
+
+def check_loop_drive(run: dict, kernels: bool) -> None:
+    """The quality drive's bounds: LOST within MAX_LOST_DELAY frames of the
+    dropout; a relocalization succeeds (and launched B2 on a card); the OK
+    share is at least MIN_OK_SHARE and the drive ends OK; every keyframe pose
+    is finite and orthonormal to MAX_ORTHO_ERR. Whether the genuine loop is
+    detected is recorded, not required: in this world it turns on float
+    noise (PERF.md §6: the port's drive is deterministic and relocalizes onto
+    the first keyframes at the revisit). A loop that is detected must have
+    its first correction lower the ATE, and the fused ctx must be rebuilt
+    after it. The correction itself is held on the surgical loop
+    (run_surgical_loop)."""
+    d, lost = run["dropout_index"], run["first_lost_index"]
+    if lost is None or not d <= lost <= d + MAX_LOST_DELAY:
+        raise AssertionError(f"LOST at {lost}, dropout at {d}: {run['states'][:d + 8]}")
+    good = [a for a in run["reloc_attempts"] if a["success"]]
+    if run["last_reloc_frame_id"] <= 0 or not good:
+        raise AssertionError(f"no relocalization succeeded: {run['reloc_attempts']}")
+    if kernels and good[0]["b2_launches"] < 1:
+        raise AssertionError(f"the relocalization launched no B2: {good[0]}")
+    if run["ok_share"] < MIN_OK_SHARE or run["final_state"] != "OK":
+        raise AssertionError(f"OK share {run['ok_share']}, final {run['final_state']}")
+    if not run["poses_finite"] or run["max_ortho_err"] >= MAX_ORTHO_ERR:
+        raise AssertionError(f"keyframe poses: finite {run['poses_finite']}, "
+                             f"|R R^T - I| {run['max_ortho_err']}")
+    if run["loops"]:
+        # the first correction closes the loop; a later one re-detects the
+        # same place once the cooldown has passed
+        loop = run["loops"][0]
+        if not (loop["ate_before"] is not None and loop["ate_after"] is not None
+                and loop["ate_after"] < loop["ate_before"]):
+            raise AssertionError(f"the loop correction did not lower the ATE: {loop}")
+        if run["fused_stats"].get("ctx_builds", 0) <= loop["ctx_builds_at_loop"]:
+            raise AssertionError(f"no fused ctx rebuilt after the loop: {run['fused_stats']}")
+
+
+# test_reloc_loop.py:107-201's deterministic loop: a revisit keyframe built
+# at the first keyframe's viewpoint with its own duplicate map points
+SURGICAL_FRAMES = 16
+# the world shift of the revisit's duplicates when pre-alignment is on (a
+# drifted revisit, so that the Sim(3) fit and the essential graph have a
+# correction to find)
+SURGICAL_DRIFT = (0.04, -0.03, 0.02)
+
+
+def surgical_loop_setup(device, max_features: int, prealign: bool, drift=None) -> dict:
+    """Drive test_reloc_loop.py's 16-frame lateral sequence, then build the
+    revisit keyframe at keyframe 0's viewpoint with a duplicate map point for
+    every match to one of keyframe 0's points; with `drift` (a world
+    translation) the duplicates and the revisit pose are shifted by it."""
+    world = sim.PlaneWorld(second_plane=(3.0, 0.3))
+    poses = sim.lateral_trajectory(SURGICAL_FRAMES, step=0.07)
+    reset_frame_ids()
+    reset_map_ids()
+    params = SlamParameters(fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
+                            max_features=max_features, minIniMatchCount=100,
+                            initializerModelFallback=True, loopPrealignSim3=prealign)
+    matcher = OrbFeatureMatcher(threshold=RATIO, max_features=max_features, device=device)
+    system = System(params, matcher, KeyFrameMatchDatabase(matcher), verbose=False,
+                    device=device)
+    system.toggle_initialization_allowed()
+    states = []
+    for i, T in enumerate(poses):
+        system.track_monocular(world.render(T), timestamp=i * 0.1)
+        states.append(system.tracker.state.name)
+    tracker = system.tracker
+    kfs = sorted(system.map.all_keyframes(), key=lambda k: k.id)
+    kf_old = kfs[0]
+    shift = np.zeros(3, np.float32) if drift is None else np.asarray(drift, np.float32)
+    frame = tracker.frame_factory.create(kf_old.image, 99.0, tracker.K)
+    T = kf_old.get_pose()
+    T[:3, 3] -= T[:3, :3] @ shift  # the camera that sees X + shift where kf_old sees X
+    frame.set_pose(T)
+    kf_new = tracker.keyframe_factory.create(frame, system.map, system.kf_db)
+    system.map.add_keyframe(kf_new)
+    res = system.matcher.match_frames(kf_new, kf_old)
+    n_assoc = 0
+    for i in range(res.num_matches):
+        mp_old = res.get_map_point2(i)
+        if mp_old is None:
+            continue
+        dup = MapPoint(mp_old.world_pos + shift, kf_new, system.map)
+        kp1 = tuple(res.keypoints1[i])
+        kf_new.keypoint_map.set_map_point(kp1, dup, measurement=tuple(res.kp1_f[i]))
+        dup.add_observation(kf_new, kp1, measurement=tuple(res.kp1_f[i]))
+        system.map.add_map_point(dup)
+        n_assoc += 1
+    return {"system": system, "states": states, "kfs": kfs, "kf_old": kf_old,
+            "kf_new": kf_new, "n_matches": res.num_matches, "n_assoc": n_assoc}
+
+
+def run_surgical_loop(setup: dict, sync=lambda: None) -> dict:
+    """Hand the revisit keyframe to loop closing and run one step; checks
+    test_reloc_loop.py:162-201's invariants (the staged-GBA snapshots to
+    1e-6 only without pre-alignment, which moves poses before the GBA; with
+    it, that the Sim(3) fit and the essential graph ran and that the
+    drifted revisit keyframe moved toward its true place) and that the fused
+    ctx is rebuilt after the correction. Returns the record."""
+    system, kfs, kf_new = setup["system"], setup["kfs"], setup["kf_new"]
+    lc = system.loop_closer
+    if setup["n_assoc"] <= system.params.minNumMPMatches:
+        raise AssertionError(f"{setup['n_assoc']} duplicates, need more than "
+                             f"{system.params.minNumMPMatches}")
+    if kf_new.id < system.params.loopDetectionMaxFrames or \
+            setup["kf_old"] in kf_new.get_connected_keyframes():
+        raise AssertionError("the revisit keyframe is inside the cooldown or covisible")
+    poses_before = {kf.id: kf.get_pose().copy() for kf in kfs}
+    changes_before = system.map.get_last_big_change_idx()
+    stats = fused_host.pipe_stats(system.tracker)
+    ctx = fused_host._ensure_ctx(system.tracker, system.matcher)
+    builds = stats["ctx_builds"]
+    # the revisit sits at keyframe 0's viewpoint: its camera centre's error
+    centre_err = lambda: float(np.linalg.norm(  # noqa: E731
+        kf_new.get_camera_center() - setup["kf_old"].get_camera_center()))
+    err_before = centre_err()
+    t0 = time.perf_counter()
+    lc.insert_keyframe(kf_new)
+    lc.run()
+    sync()
+    rec = {"prealign": lc.prealign, "ms": (time.perf_counter() - t0) * 1e3,
+           "keyframes": len(kfs) + 1, "duplicates": setup["n_assoc"],
+           "loop_kf": lc.last_loop_kf_id, "matched_kf": getattr(lc.matched_kf, "id", None),
+           "fused": lc.last_fuse_count, "prealign_fit": lc.last_prealign,
+           "revisit_centre_err_before": err_before, "revisit_centre_err_after": centre_err()}
+    rebuilt = fused_host._ensure_ctx(system.tracker, system.matcher) is not ctx
+    rec["ctx_rebuilt"] = rebuilt and stats["ctx_builds"] == builds + 1
+    if not rec["ctx_rebuilt"]:
+        raise AssertionError(f"the fused ctx was not rebuilt after the correction: {rec}")
+    if lc.last_loop_kf_id != kf_new.id or lc.matched_kf not in kfs:
+        raise AssertionError(f"the loop did not fire on the revisit keyframe: {rec}")
+    alive = [kf for kf in system.map.all_keyframes() if not kf.is_bad]
+    if lc.prealign:
+        fit = lc.last_prealign
+        if not fit or "nodes" not in fit:
+            raise AssertionError(f"the Sim(3) fit and essential graph did not run: {rec}")
+        if not rec["revisit_centre_err_after"] < rec["revisit_centre_err_before"]:
+            raise AssertionError(f"the correction did not move the revisit toward its place: {rec}")
+    else:
+        err = max(float(np.abs(kf.Tcw_bef_gba - poses_before[kf.id]).max())
+                  for kf in kfs if not kf.is_bad)
+        rec["max_bef_gba_err"] = err
+        if err > 1e-6:
+            raise AssertionError(f"Tcw_bef_gba differs from the pre-loop pose by {err}")
+    unstamped = [kf.id for kf in alive if kf.ba_global_for_kf != kf_new.id]
+    if unstamped:
+        raise AssertionError(f"keyframes {unstamped} missed the loop GBA propagation")
+    finite, ortho = pose_ortho_errors(system)
+    rec.update(poses_finite=finite, max_ortho_err=ortho)
+    if not finite or ortho >= MAX_ORTHO_ERR:
+        raise AssertionError(f"poses after the loop: {rec}")
+    if not (system.map.get_last_big_change_idx() > changes_before and system.map_changed()):
+        raise AssertionError("the loop correction flagged no big change")
+    return rec
+
+
 def _print(rec):
     print(json.dumps(rec), flush=True)
 
@@ -992,6 +1376,25 @@ def fused_phases(dev, sys_cfg: SystemConfig, kf_cfg: SystemConfig, world_s, pose
     if kf_run["kf_events"] < 1:
         raise AssertionError("no keyframe event in the keyframe regime's timed window")
     return {k: sum(r["launches"][k] for r in (fused, pipe, kf_run)) for k in ("b1", "b2")}
+
+
+def reloc_loop_phase(dev, cfg: LoopConfig) -> dict:
+    """Phase reloc_loop (see the module docstring). Returns the quality
+    drive's launches."""
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    world, poses, images = render_loop(cfg)  # before any timing
+    run = run_loop_drive(dev, cfg, world, poses, images)
+    surgical = {}
+    for prealign in (False, True):
+        setup = surgical_loop_setup(dev, cfg.max_features, prealign,
+                                    SURGICAL_DRIFT if prealign else None)
+        key = "prealign_on" if prealign else "prealign_off"
+        surgical[key] = run_surgical_loop(setup, sync)
+    rec = {k: v for k, v in run.items() if k not in ("system", "states")}
+    _print({"phase": "reloc_loop", **rec, "states_head": run["states"][:cfg.drop_at + 8],
+            "surgical": surgical})
+    check_loop_drive(run, kernels=dev.type == "cuda")
+    return run["launches"]
 
 
 def main() -> int:
@@ -1147,6 +1550,7 @@ def main() -> int:
     check_system_run(plain_run, kernels=False)
 
     fused_launches = fused_phases(dev, sys_cfg, SYSTEM_KF, world_s, poses_s, images_s, run)
+    loop_launches = reloc_loop_phase(dev, LOOP_FULL)
 
     b1_stack_bound = b1_bound(dims, stacked=True)
     banded_bound = b1_bound(banded_dims, stacked=False)
@@ -1157,7 +1561,7 @@ def main() -> int:
         {"name": "detect_maps", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
-         "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"],
+         "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"] + loop_launches["b1"],
          "max_abs_err": max(b1["max_abs_err"].values()),
          "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_stack_bound[0],
@@ -1181,7 +1585,7 @@ def main() -> int:
         {"name": "pose_lm", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
-         "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"],
+         "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"] + loop_launches["b2"],
          "max_abs_err": b2["edges_2000"]["T_max_abs_err"],
          "ms": b2_ms, "wrapper_ms": b2_wrapper_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_b[0],

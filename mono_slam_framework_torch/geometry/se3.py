@@ -128,6 +128,11 @@ def _from_rt(R, t):
     return torch.cat([torch.cat([R, t], -1), bottom.expand(*R.shape[:-2], 1, 4)], -2)
 
 
+def compose(Ta, Tb):
+    """Ta @ Tb over any leading batch dims."""
+    return Ta @ Tb
+
+
 def inverse(T):
     """Exact SE3 inverse."""
     Rt = T[..., :3, :3].transpose(-1, -2)

@@ -10,8 +10,12 @@ PyTorch counterpart of `mono_slam_framework_tpu/optim/bundle_adjust.py`
     negative depth, then 10 plain iterations, then report bad observations.
 
 The edge list is a struct-of-arrays; per-edge 2x6 / 2x3 Jacobian blocks are
-built in one vectorized pass, Hessian blocks are `index_add_` scatters (U
-per camera, V per landmark, W per edge). The dense solver assembles the
+built in one vectorized pass, Hessian blocks are segment sums (U per
+camera, V per landmark, W per edge). Each segment is summed in edge order
+(`torch.segment_reduce` over a stable sort of the index), the order the CPU's
+`index_add_` adds in: the card gives the CPU's sums, and the same map on
+every run, where an atomic `index_add_` adds in arrival order and no two runs
+of a System agree. The dense solver assembles the
 reduced camera system S = U - W V^-1 W^T from per-(edge, edge)-pair 6x6
 contributions (pairs sharing a landmark, listed on the host) and solves it
 with Jacobi equilibration; the PCG solver applies S matrix-free. The LM
@@ -120,11 +124,25 @@ def _inv3x3(M):
     return adj / det[..., None, None]
 
 
-def _segment_sum(x, idx, n):
-    """Sum rows of x [E, ...] into n segments by idx [E]."""
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(
-        0, idx, x
+class _Segments(NamedTuple):
+    """The rows of an [E, ...] tensor grouped by a segment index [E]."""
+
+    order: torch.Tensor  # int64 [E], the stable sort of the index
+    lengths: torch.Tensor  # int64 [n], rows per segment
+
+
+def _segments(idx, n: int) -> _Segments:
+    # integer counts are exact in any order; no host read
+    lengths = torch.zeros(n, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx)
     )
+    return _Segments(torch.argsort(idx, stable=True), lengths)
+
+
+def _segment_sum(x, seg: _Segments):
+    """Sum rows of x [E, ...] into the segments, each in edge order."""
+    return torch.segment_reduce(x[seg.order], "sum", lengths=seg.lengths, axis=0,
+                                unsafe=True)
 
 
 def _edge_terms(cam_T, X, p: BAProblem, mask, use_huber: bool):
@@ -193,6 +211,9 @@ def _lm_iterations(
     C = cam_T.shape[0]
     P = X.shape[0]
     free = (~p.cam_fixed).to(dtype)  # [C]
+    by_cam, by_pt = _segments(p.e_cam, C), _segments(p.e_pt, P)
+    if solver == "dense":  # the Schur blocks S[ci, cj] by camera pair
+        by_pair = _segments(p.e_cam[p.pair_i] * C + p.e_cam[p.pair_j], C * C)
     I6 = torch.eye(6, dtype=dtype, device=dev)
     I3 = torch.eye(3, dtype=dtype, device=dev)
 
@@ -205,7 +226,7 @@ def _lm_iterations(
         du = torch.sum(Jc * Jc, dim=1) * w[:, None]  # [E,6] diag contributions
         dv = torch.sum(Jp * Jp, dim=1) * w[:, None]
         return torch.maximum(
-            torch.max(_segment_sum(du, p.e_cam, C)), torch.max(_segment_sum(dv, p.e_pt, P))
+            torch.max(_segment_sum(du, by_cam)), torch.max(_segment_sum(dv, by_pt))
         )
 
     lam = lm.TAU * hessian_diag_max(cam_T, X)
@@ -217,11 +238,11 @@ def _lm_iterations(
         # the IRLS weight folded into one side: J^T W J as two-operand products
         wJc = Jc * w[:, None, None]
         wJp = Jp * w[:, None, None]
-        U = _segment_sum(wJc.transpose(1, 2) @ Jc, p.e_cam, C)  # [C,6,6]
-        V = _segment_sum(wJp.transpose(1, 2) @ Jp, p.e_pt, P)  # [P,3,3]
+        U = _segment_sum(wJc.transpose(1, 2) @ Jc, by_cam)  # [C,6,6]
+        V = _segment_sum(wJp.transpose(1, 2) @ Jp, by_pt)  # [P,3,3]
         W = wJc.transpose(1, 2) @ Jp  # [E,6,3] (edge-local)
-        bc = _segment_sum((wJc.transpose(1, 2) @ r[..., None])[..., 0], p.e_cam, C)
-        bp = _segment_sum((wJp.transpose(1, 2) @ r[..., None])[..., 0], p.e_pt, P)
+        bc = _segment_sum((wJc.transpose(1, 2) @ r[..., None])[..., 0], by_cam)
+        bp = _segment_sum((wJp.transpose(1, 2) @ r[..., None])[..., 0], by_pt)
 
         U = U + lam * I6
         Vinv = _inv3x3(V + lam * I3)
@@ -229,15 +250,13 @@ def _lm_iterations(
 
         # reduced rhs = -(bc - sum_e Y_e bp[pt_e]) per camera
         ybp = (Y @ bp[p.e_pt][..., None])[..., 0]
-        red = bc - _segment_sum(ybp, p.e_cam, C)  # [C,6]
+        red = bc - _segment_sum(ybp, by_cam)  # [C,6]
 
         if solver == "dense":
             # Schur assembly: S[ci,cj] -= sum over pairs Y_i W_j^T
             contrib = Y[p.pair_i] @ W[p.pair_j].transpose(-1, -2)
             contrib = contrib * p.pair_valid.to(dtype)[:, None, None]
-            ci = p.e_cam[p.pair_i]
-            cj = p.e_cam[p.pair_j]
-            S = -_segment_sum(contrib, ci * C + cj, C * C).reshape(C, C, 6, 6)
+            S = -_segment_sum(contrib, by_pair).reshape(C, C, 6, 6)
             S[torch.arange(C, device=dev), torch.arange(C, device=dev)] += U
             S = S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
             rhs = -red.reshape(6 * C)
@@ -260,14 +279,14 @@ def _lm_iterations(
                 # S x = U x - W V^-1 W^T x; fixed-camera rows act as identity
                 ux = (U @ x[..., None])[..., 0]
                 wx = (W.transpose(-1, -2) @ x[p.e_cam][..., None])[..., 0]  # [E,3]
-                vp = (Vinv @ _segment_sum(wx, p.e_pt, P)[..., None])[..., 0]
+                vp = (Vinv @ _segment_sum(wx, by_pt)[..., None])[..., 0]
                 back = (W @ vp[p.e_pt][..., None])[..., 0]  # [E,6]
-                out = ux - _segment_sum(back, p.e_cam, C)
+                out = ux - _segment_sum(back, by_cam)
                 return out * free[:, None] + x * (1.0 - free)[:, None]
 
             # block-Jacobi preconditioner from the self-pair Schur diagonal
             # S_cc ~ U_c - sum_{e in c} Y_e W_e^T
-            diag_sub = _segment_sum(Y @ W.transpose(-1, -2), p.e_cam, C)
+            diag_sub = _segment_sum(Y @ W.transpose(-1, -2), by_cam)
             Sd = U - diag_sub + 1e-6 * I6
             Sd = torch.where(p.cam_fixed[:, None, None], I6, Sd)
             Sd_inv = torch.linalg.inv_ex(Sd)[0]
@@ -279,7 +298,7 @@ def _lm_iterations(
 
         # landmark back-substitution: dp = -Vinv (bp + W^T dc)
         wt_dc = (W.transpose(-1, -2) @ dc[p.e_cam][..., None])[..., 0]  # [E,3]
-        dp = -(Vinv @ (bp + _segment_sum(wt_dc, p.e_pt, P))[..., None])[..., 0]
+        dp = -(Vinv @ (bp + _segment_sum(wt_dc, by_pt))[..., None])[..., 0]
 
         T_new = se3.exp_se3(dc) @ T
         X_new = Xp + dp

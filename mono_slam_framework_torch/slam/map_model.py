@@ -362,6 +362,14 @@ class KeyFrame(FrameBase):
     def get_best_covisibles(self, n: int) -> list:
         return self.ordered_covisibles[:n]
 
+    def get_covisibles_by_weight(self, w: int) -> list:
+        """Covisible keyframes sharing more than `w` points, best first."""
+        return [
+            kf
+            for kf, wt in zip(self.ordered_covisibles, self.ordered_weights)
+            if wt > w
+        ]
+
     def get_weight(self, kf) -> int:
         return self.connections.get(kf, 0)
 

@@ -12,8 +12,10 @@ asks for the CPU); the matcher must extract on the same device. Tracking
 runs the default fused flow (`fusedTracking=True`, `fusedOneStep=True`:
 slam/fused_host.py) or the reference-twin flow (`fusedTracking=False`);
 `track_monocular_pipelined` overlaps each frame's device work with the
-caller's next frame. Not ported yet, and raising when called: the live
-viewer (`start_gui`), checkpoints, relocalization and loop correction
+caller's next frame. A lost track relocalizes (EPnP over the keyframe
+database) and a detected loop is corrected (Sim(3) pre-alignment, essential
+graph, fuse, loop global BA), both on the System's device. Not ported yet,
+and raising when called: the live viewer (`start_gui`) and checkpoints
 (ROADMAP §A).
 """
 
@@ -82,7 +84,8 @@ class System:
             self.map, feature_matcher, parameters, self.device, verbose=verbose
         )
         self.loop_closer = LoopClosing(
-            self.map, self.kf_db, feature_matcher, parameters, verbose=verbose
+            self.map, self.kf_db, feature_matcher, parameters, self.device,
+            verbose=verbose,
         )
         self.tracker.local_mapper = self.local_mapper
         self.tracker.loop_closer = self.loop_closer

@@ -100,3 +100,23 @@ def test_edge_pairs_match_jax_list():
     n = int(np.asarray(pj.pair_valid).sum())
     np.testing.assert_array_equal(pt.pair_i.numpy()[:n], np.asarray(pj.pair_i)[:n])
     np.testing.assert_array_equal(pt.pair_j.numpy()[:n], np.asarray(pj.pair_j)[:n])
+
+
+@pytest.mark.parametrize("inner", [(), (6,), (6, 3)])
+def test_segment_sums_add_in_edge_order(inner):
+    """Each segment is summed in edge order: bit-equal to the CPU's
+    index_add_, whatever order the segments' rows come in, and empty
+    segments sum to 0 (the card sums the same way, so it reproduces the
+    CPU's sums run after run)."""
+    import torch
+
+    rng = np.random.default_rng(4)
+    n, E = 50, 4000
+    idx = torch.from_numpy(rng.integers(0, n - 5, E))  # the last 5 segments stay empty
+    x = torch.from_numpy(rng.normal(size=(E, *inner)).astype(np.float32) * 1e3)
+    seg = ba._segments(idx, n)
+    got = ba._segment_sum(x, seg)
+    ref = torch.zeros((n, *inner)).index_add_(0, idx, x)
+    assert torch.equal(got, ref)
+    assert seg.lengths.tolist() == np.bincount(idx.numpy(), minlength=n).tolist()
+    assert not got[-5:].any()

@@ -199,10 +199,12 @@ def test_port_imports_without_jax():
         for p in pkg.rglob("*.py")
         if p.name != "__init__.py"
     )
+    tools = sorted(p.stem for p in (root / "tools").glob("torch_*.py"))
     code = (
         "import sys; sys.modules['jax'] = None; "
         "sys.modules['mono_slam_framework_tpu'] = None; "
-        + "; ".join(f"import {m}" for m in mods + ["chip_smoke"])
+        "sys.path.insert(0, 'tools'); "
+        + "; ".join(f"import {m}" for m in mods + ["chip_smoke"] + tools)
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=root, capture_output=True, text=True
@@ -212,4 +214,7 @@ def test_port_imports_without_jax():
     prefix = "mono_slam_framework_torch."
     for sub in ("estimation", "slam", "io", "viz", "utils", "params", "geometry", "optim"):
         assert any(m.startswith(prefix + sub) for m in mods), sub
-    assert len(mods) >= 33
+    # relocalization and loop correction
+    for m in ("estimation.epnp", "optim.pose_graph", "geometry.sim3", "slam.loop_closing"):
+        assert prefix + m in mods, m
+    assert len(mods) >= 36 and len(tools) >= 3
