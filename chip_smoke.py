@@ -18,6 +18,8 @@ line and raises if it fails:
                 a batch of 3 with different padding and cameras, and on
                 50,000 slots (past shared memory: read from device memory);
   5. extract  — orb.extract through B1 against the plain path, by feature set;
+     hamming  — the bf16 Hamming distance matrix bit-equal to the f32 product
+                on the card at the steady shapes, and both forms' times;
   6. slice    — 40 chained frames of fused_tracking.steady_step at 640x480,
                 2000 features, 8 local keyframes and tables of 1024, on a map
                 seeded from the simulator's geometry; checks launch counts,
@@ -63,7 +65,32 @@ line and raises if it fails:
                 with pre-alignment off (the staged-GBA invariants) and on (a
                 drifted revisit: the Sim(3) fit and the essential graph run
                 and move the revisit toward its place), the fused ctx rebuilt
-                after each correction.
+                after each correction. The map drawer's update time
+                (the tracker calls it on every OK frame) is reported here and
+                in every System phase; system_fused's map goes through a
+                checkpoint round trip (phase checkpoint).
+ 14. loftr_model — the LoFTR coarse model on the card at 480x640 on
+                tests/test_loftr.py's rendered pair: the f32 confidence
+                against the CPU's (< 1e-5, argmax > 0.999), the card's bf16
+                path against its f32 one (max |d|, argmax agreement, the
+                above-threshold sets), match_against_many against serial
+                match_frames, fine_refine's offsets bf16 against f32, and
+                CUDA-event times of encode, one pairwise
+                confidence_from_features and match_one_against_many at N = 8;
+ 15. system_loftr, system_loftr_fused, system_loftr_pipelined — the System
+                regime of phase 9 with LoftrFeatureMatcher(threshold=0.1,
+                fine=False), minIniMatchCount=60: the reference-twin flow, the
+                one-step fused_loftr path and the pipelined mode (dispatches
+                under the sync debug mode), each followed by 5 frames under
+                torch.profiler (copies and synchronizations per frame); the
+                trajectory pairs fused / unfused and pipelined / fused;
+ 16. b2_loftr   — kernel B2 against its plain version on a 1200-slot problem
+                taken from the fused LoFTR step (the coarse-cell information
+                weight), and its bare, wrapper and plain times;
+ 17. quality_loftr — quality_bench.run_quality_loftr's drive (the smooth
+                rect-loop world at 320x240, 40 poses, LoFTR at threshold
+                0.1): OK share, ATE, keyframes, map points, batched database
+                matches.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -74,6 +101,7 @@ checks take a device and a size, so the CPU tests run them at a small size.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import pathlib
@@ -95,12 +123,13 @@ import torch  # noqa: E402
 from mono_slam_framework_torch import _kernels, convert, sim  # noqa: E402
 from mono_slam_framework_torch.geometry import se3  # noqa: E402
 from mono_slam_framework_torch.io import trajectory  # noqa: E402
-from mono_slam_framework_torch.matchers import OrbFeatureMatcher  # noqa: E402
-from mono_slam_framework_torch.ops import detect, orb  # noqa: E402
+from mono_slam_framework_torch.matchers import LoftrFeatureMatcher, OrbFeatureMatcher  # noqa: E402
+from mono_slam_framework_torch.models import loftr_native  # noqa: E402
+from mono_slam_framework_torch.ops import detect, hamming, orb  # noqa: E402
 from mono_slam_framework_torch.optim import pose_opt, pose_opt_cuda  # noqa: E402
 from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System  # noqa: E402
-from mono_slam_framework_torch.slam import fused_host, fused_tracking  # noqa: E402
+from mono_slam_framework_torch.slam import fused_host, fused_loftr, fused_tracking  # noqa: E402
 from mono_slam_framework_torch.slam.frame import reset_frame_ids  # noqa: E402
 from mono_slam_framework_torch.slam.map_model import MapPoint, reset_map_ids  # noqa: E402
 
@@ -519,6 +548,36 @@ def b2_cluster_sweep(device):
             "default": pose_opt_cuda.CLUSTER}
 
 
+def check_hamming(device) -> dict:
+    """Phase hamming (ROADMAP C.9): the bf16 Hamming distance matrix against
+    the f32 product of the same bits on the card, bit for bit, at the steady
+    shapes (2000 x 2000, and 2000 against a stack of 8 keyframes' 2000),
+    with invalid rows; then both forms' CUDA-event times."""
+    rng = np.random.default_rng(9)
+    rec = {"phase": "hamming"}
+    for name, lead in (("pair", ()), ("stack_8", (8,))):
+        d1 = torch.from_numpy(rng.integers(-2**31, 2**31, (2000, 8), dtype=np.int64)
+                              .astype(np.int32)).to(device)
+        d2 = torch.from_numpy(rng.integers(-2**31, 2**31, (*lead, 2000, 8), dtype=np.int64)
+                              .astype(np.int32)).to(device)
+        v1 = torch.from_numpy(rng.random(2000) < 0.95).to(device)
+        v2 = torch.from_numpy(rng.random((*lead, 2000)) < 0.95).to(device)
+
+        def f32_form():
+            b1, b2 = hamming.unpack_bits(d1), hamming.unpack_bits(d2)
+            d = b1.sum(-1)[:, None] + b2.sum(-1)[..., None, :] - 2.0 * (b1 @ b2.transpose(-1, -2))
+            return torch.where(v1[:, None] & v2[..., None, :], d, torch.inf)
+
+        got = hamming.distance_matrix(d1, d2, v1, v2)
+        ref = f32_form()
+        rec[name] = {"equal": bool(torch.equal(got, ref)),
+                     "ms": _cuda_ms(lambda: hamming.distance_matrix(d1, d2, v1, v2)),
+                     "f32_ms": _cuda_ms(f32_form)}
+        if not rec[name]["equal"]:
+            raise AssertionError(f"the bf16 Hamming distances differ from f32 ({name})")
+    return rec
+
+
 def feature_set_agreement(fa: dict, fb: dict):
     """How far two feature sets (dicts of numpy arrays with the Features
     fields, desc as uint32 words) agree, slot order aside: valid keypoints
@@ -709,20 +768,54 @@ def render_system(cfg: SystemConfig):
 FLOWS = {"unfused": {"fusedTracking": False}, "fused": {}, "pipelined": {}}
 
 
-def build_system(device, cfg: SystemConfig, world, flow: str = "unfused") -> System:
+# the LoFTR System (tests/test_loftr_pipeline.py::build_loftr_system, the
+# reference app's DNN configuration: threshold 0.1, src/main.cpp:63)
+LOFTR_THRESHOLD = 0.1
+LOFTR_MIN_INI_MATCHES = 60
+
+
+def build_system(device, cfg: SystemConfig, world, flow: str = "unfused",
+                 matcher: str = "orb") -> System:
     """bench.py's System on `device`, in one of FLOWS (default: the
-    reference-twin flow, fusedTracking=False)."""
+    reference-twin flow, fusedTracking=False), with the ORB matcher or
+    (matcher="loftr") test_loftr_pipeline.py's coarse LoFTR configuration."""
     reset_frame_ids()
     reset_map_ids()
-    params = SlamParameters(
-        fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
-        max_features=cfg.max_features, minIniMatchCount=100,
-        initializerModelFallback=True, **FLOWS[flow],
-    )
-    matcher = OrbFeatureMatcher(threshold=RATIO, max_features=cfg.max_features,
-                                device=device)
-    return System(params, matcher, KeyFrameMatchDatabase(matcher), verbose=False,
-                  device=device)
+    if matcher == "loftr":
+        params = SlamParameters(
+            fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
+            minIniMatchCount=LOFTR_MIN_INI_MATCHES, initializerModelFallback=True,
+            **FLOWS[flow],
+        )
+        m = LoftrFeatureMatcher(threshold=LOFTR_THRESHOLD, fine=False, device=device)
+    else:
+        params = SlamParameters(
+            fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
+            max_features=cfg.max_features, minIniMatchCount=100,
+            initializerModelFallback=True, **FLOWS[flow],
+        )
+        m = OrbFeatureMatcher(threshold=RATIO, max_features=cfg.max_features, device=device)
+    return System(params, m, KeyFrameMatchDatabase(m), verbose=False, device=device)
+
+
+@contextlib.contextmanager
+def drawer_timer(system: System):
+    """Time every MapDrawer.update of `system` (the tracker calls it on every
+    OK frame, ROADMAP C.10); yields the list of ms, one per call."""
+    drawer = system.map_drawer
+    real = drawer.update
+    ms: list = []
+
+    def update():
+        t0 = time.perf_counter()
+        real()
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    drawer.update = update
+    try:
+        yield ms
+    finally:
+        drawer.update = real
 
 
 def _pct(xs, q):
@@ -767,7 +860,7 @@ def run_system(device, cfg: SystemConfig, world, poses, images, system=None,
     from the call that completes frame n_warm to the synchronization after
     flush_pipeline. Returns the drive's record: states, live poses, latency,
     stage split, launches, which path completed each frame, the fused flow's
-    counters, ATE."""
+    counters, ATE, and the map drawer's update time over the timed window."""
     system = system or build_system(device, cfg, world, flow)
     system.toggle_initialization_allowed()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *_: None)
@@ -781,39 +874,42 @@ def run_system(device, cfg: SystemConfig, world, poses, images, system=None,
     t_timed = t_window = 0.0
     stats0: dict = {}
     n = len(images)
-    for call in range(n + pipelined):
-        done = call - pipelined  # the frame this call completes (-1: none)
-        if done == cfg.n_warm:
-            system.timer.reset()
-            n_kf_before = system.map.n_keyframes()
-            stats0 = dict(stats)
-            t_window = time.perf_counter()
-        before = (_launches(), {k: stats.get(k, 0) for k in PATHS})
-        t0 = time.perf_counter()
-        if call < n:
-            step(images[call], timestamp=call * 0.1)
-        else:
-            system.flush_pipeline()
-        if not pipelined:
-            sync(device)
-        ms = (time.perf_counter() - t0) * 1e3
-        if done < 0:
-            continue
-        states.append(system.tracker.state.name)
-        T = system.tracker.current_frame.get_pose()
-        Tcw.append(np.full((4, 4), np.nan, np.float32) if T is None else T)
-        frame_launches.append({k: v - before[0][k] for k, v in _launches().items()})
-        frame_path.append(next((k for k in PATHS if stats.get(k, 0) > before[1][k]), None))
-        if done >= cfg.n_warm:
-            t_timed += ms
-            frame_ms.append(ms)
-            n_kf = system.map.n_keyframes()
-            if n_kf != n_kf_before:
-                kf_event_ms.append(ms)
-                n_kf_before = n_kf
-    sync(device)
-    if pipelined:
-        t_timed = (time.perf_counter() - t_window) * 1e3
+    n_draw0 = 0
+    with drawer_timer(system) as drawer_ms:
+        for call in range(n + pipelined):
+            done = call - pipelined  # the frame this call completes (-1: none)
+            if done == cfg.n_warm:
+                system.timer.reset()
+                n_kf_before = system.map.n_keyframes()
+                stats0 = dict(stats)
+                n_draw0 = len(drawer_ms)
+                t_window = time.perf_counter()
+            before = (_launches(), {k: stats.get(k, 0) for k in PATHS})
+            t0 = time.perf_counter()
+            if call < n:
+                step(images[call], timestamp=call * 0.1)
+            else:
+                system.flush_pipeline()
+            if not pipelined:
+                sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            if done < 0:
+                continue
+            states.append(system.tracker.state.name)
+            T = system.tracker.current_frame.get_pose()
+            Tcw.append(np.full((4, 4), np.nan, np.float32) if T is None else T)
+            frame_launches.append({k: v - before[0][k] for k, v in _launches().items()})
+            frame_path.append(next((k for k in PATHS if stats.get(k, 0) > before[1][k]), None))
+            if done >= cfg.n_warm:
+                t_timed += ms
+                frame_ms.append(ms)
+                n_kf = system.map.n_keyframes()
+                if n_kf != n_kf_before:
+                    kf_event_ms.append(ms)
+                    n_kf_before = n_kf
+        sync(device)
+        if pipelined:
+            t_timed = (time.perf_counter() - t_window) * 1e3
     launches = _launches()
 
     gt_t = np.arange(len(images)) * 0.1
@@ -860,6 +956,9 @@ def run_system(device, cfg: SystemConfig, world, poses, images, system=None,
                         "host": n_timed - timed_paths.count("done_steady")
                         - timed_paths.count("done_two_program")},
         "fused_stats": fused_stats, "timed_stats": timed_stats,
+        "drawer_updates_timed": len(drawer_ms) - n_draw0,
+        "drawer_update_ms_per_timed_frame": sum(drawer_ms[n_draw0:]) / max(n_timed, 1),
+        "drawer_update_ms_p50": _pct(drawer_ms[n_draw0:], 50),
         "frame_launches": frame_launches, "frame_path": frame_path,
         "system": system,
     }
@@ -1087,7 +1186,7 @@ def run_loop_drive(device, cfg: LoopConfig, world, poses, images) -> dict:
     dropout_index = None
     t = 0.0
     t_drive = time.perf_counter()
-    with loop_spies(system, sync) as log:
+    with loop_spies(system, sync) as log, drawer_timer(system) as drawer_ms:
         feed = []
         for i, T in enumerate(poses):
             feed.append((i, images[i], T))
@@ -1138,6 +1237,10 @@ def run_loop_drive(device, cfg: LoopConfig, world, poses, images) -> dict:
         "frame_p50_ms": _pct(frame_ms, 50), "frame_p95_ms": _pct(frame_ms, 95),
         "kf_events": len(kf_event_ms), "kf_event_p95_ms": _pct(kf_event_ms, 95),
         "fused_stats": {k: v for k, v in stats.items() if not k.endswith("_samples_ms")},
+        "drawer_updates": len(drawer_ms),
+        "drawer_update_ms_per_frame": sum(drawer_ms) / len(states),
+        "drawer_update_ms_p50": _pct(drawer_ms, 50),
+        "drawer_update_ms_last": drawer_ms[-1] if drawer_ms else None,
         "system": system,
     }
 
@@ -1296,6 +1399,426 @@ def run_surgical_loop(setup: dict, sync=lambda: None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# checkpoints, and the System under torch.profiler
+
+
+def checkpoint_round_trip(device, cfg: SystemConfig, world, system: System) -> dict:
+    """tests/test_pipeline.py:108-122's round trip on `system`'s map: save it,
+    load it into a fresh System on the same device; the keyframe count must
+    be equal, at least 0.8 of the map points must survive the reload's
+    bad-flag cascade, and the first keyframe's Tcw must be within 1e-6."""
+    n_kf, n_mp = system.map.n_keyframes(), system.map.n_map_points()
+    first = sorted(system.map.all_keyframes(), key=lambda k: k.id)[0].Tcw.copy()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/map.npz"
+        t0 = time.perf_counter()
+        system.save_checkpoint(path)
+        t1 = time.perf_counter()
+        size = pathlib.Path(path).stat().st_size
+        other = build_system(device, cfg, world, "fused")
+        t2 = time.perf_counter()
+        other.load_checkpoint(path)
+        t3 = time.perf_counter()
+    kf_l = sorted(other.map.all_keyframes(), key=lambda k: k.id)[0]
+    rec = {"keyframes": n_kf, "map_points": n_mp,
+           "loaded_keyframes": other.map.n_keyframes(),
+           "loaded_map_points": other.map.n_map_points(),
+           "first_kf_Tcw_max_abs_diff": float(np.abs(kf_l.Tcw - first).max()),
+           "bytes": size, "save_ms": (t1 - t0) * 1e3, "load_ms": (t3 - t2) * 1e3}
+    if not (rec["loaded_keyframes"] == n_kf and rec["loaded_map_points"] >= 0.8 * n_mp
+            and rec["first_kf_Tcw_max_abs_diff"] <= 1e-6 and kf_l.keypoint_map.size > 0):
+        raise AssertionError(f"checkpoint round trip: {rec}")
+    return rec
+
+
+# host-side CUDA runtime calls that wait for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def profile_tail(dev, cfg: SystemConfig, world, poses, images, flow: str, k: int,
+                 matcher: str = "orb") -> tuple:
+    """Drive all but the last k frames with run_system, then the last k
+    calls under torch.profiler. Returns (run_system's record of the head,
+    the per-frame device figures of the profiled calls: device-busy ms, the
+    idle share, device ops, device->host copies, synchronizations (the
+    closing synchronize left out) and the top device kernels; the launch
+    counts of head and tail together under "launches_total")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(images) - k
+    system = build_system(dev, cfg, world, flow, matcher)
+    head = run_system(dev, cfg._replace(n_timed=n - cfg.n_warm), world,
+                      poses[:n], images[:n], system=system, flow=flow)
+    pipelined = flow == "pipelined"
+    step = system.track_monocular_pipelined if pipelined else system.track_monocular
+    stats = fused_host.pipe_stats(system.tracker)
+    if pipelined:  # run_system flushed: start the pipeline again on frame n
+        step(images[n], timestamp=n * 0.1)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    paths = []
+    with profile(activities=activities) as prof:
+        t1 = time.perf_counter()
+        for i in range(n + pipelined, len(images) + pipelined):
+            before = {p: stats.get(p, 0) for p in PATHS}
+            if i < len(images):
+                step(images[i], timestamp=i * 0.1)
+            else:
+                system.flush_pipeline()
+            paths.append(next((p for p in PATHS if stats.get(p, 0) > before[p]), None))
+        sync()
+        wall = time.perf_counter() - t1
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+    d2h = [e.name for e in kernels if "DtoH" in e.name]
+    syncs = [e.name for e in events if e.name in SYNC_CALLS]
+    if "cudaDeviceSynchronize" in syncs:
+        syncs.remove("cudaDeviceSynchronize")  # the closing synchronize
+    head["launches_total"] = _launches()
+    return head, {
+        "frames": k, "paths": paths, "final_state": system.tracker.state.name,
+        "wall_ms_per_frame": 1e3 * wall / k,
+        "device_busy_ms_per_frame": busy_us / 1e3 / k,
+        "idle_share": 1.0 - (busy_us / 1e6) / wall,
+        "device_ops_per_frame": len(kernels) / k,
+        "dtoh_copies_per_frame": len(d2h) / k,
+        "synchronizations_per_frame": len(syncs) / k,
+        "by_name_per_frame": {n: c / k for n, c in collections.Counter(d2h + syncs).items()},
+        "top": [{"name": name[:90], "ms_per_frame": sum(v) / 1e3 / k,
+                 "calls_per_frame": len(v) / k} for name, v in top],
+    }
+
+
+# ---------------------------------------------------------------------------
+# the LoFTR matcher
+
+# PERF.md §2's System regime with the LoFTR matcher: 640x480, step 0.02,
+# 12 warm + 30 timed frames (max_features is not used by LoFTR)
+SYSTEM_LOFTR = SystemConfig(480, 640, 500.0, 2000, 12, 30, 0.02)
+PROFILE_FRAMES = 5  # calls after each LoFTR drive's timed window, profiled
+# tests/test_loftr_pipeline.py's bounds: frame ATE against ground truth
+# (:95-97, :147-152) and the fused-vs-unfused trajectory pair (:118-121),
+# also held for the pipelined-vs-fused pair
+MAX_LOFTR_ATE = 0.2
+MAX_LOFTR_PAIR_ATE = 0.06
+# The card's bf16 LoFTR against its f32 one on the rendered pair: of the
+# cells whose f32 best match is above the threshold, the share whose argmax
+# stays the same; and the batched database match against serial calls
+# (Jaccard index of the above-threshold match sets; on the CPU both are
+# equal exactly, tests/test_torch_loftr_matcher.py)
+MIN_LOFTR_BF16_ARGMAX = 0.9
+MIN_LOFTR_MANY_JACCARD = 0.95
+LOFTR_B2_SLOTS = 1200  # one edge slot per /16 cell at 480x640
+QUALITY_LOFTR_POSES = 40  # quality_bench.run_quality_loftr's default
+
+
+class _Frame:
+    """A stand-in frame for the matcher: an image under a cache key."""
+
+    def __init__(self, key, image):
+        self.id, self.image, self.matcher_key = key, image, ("chip_smoke", key)
+
+
+def loftr_pair():
+    """tests/test_loftr.py's rendered 640x480 pair."""
+    world = sim.PlaneWorld(width=640, height=480, f=500.0, second_plane=(3.0, 0.3))
+    poses = sim.lateral_trajectory(4, step=0.2)
+    return world.render(poses[0]), world.render(poses[2])
+
+
+@contextlib.contextmanager
+def loftr_f32():
+    """The LoFTR model's learned-weight products in f32 on the card as well
+    (the CPU's precision), for comparison with the card's bf16 path."""
+    with mock.patch.object(loftr_native, "_lowp", lambda t: t):
+        yield
+
+
+def _match_set(res) -> set:
+    return set(map(tuple, np.concatenate([res.keypoints1, res.keypoints2], 1).tolist()))
+
+
+def _jaccard(a: set, b: set) -> float:
+    return len(a & b) / max(len(a | b), 1)
+
+
+def check_loftr_model(dev) -> dict:
+    """Phase loftr_model (see the module docstring)."""
+    a, b = loftr_pair()
+    thr = LOFTR_THRESHOLD
+    m = LoftrFeatureMatcher(threshold=thr, device=dev)
+    model = m.model
+    x = torch.from_numpy(np.stack([a, b])[:, None] / 255.0).float()
+    conf_cpu = loftr_native.loftr_confidence(loftr_native.load_model(device="cpu"),
+                                             x[:1], x[1:])[0].numpy()
+    xd = x.to(dev)
+    conf16 = loftr_native.loftr_confidence(model, xd[:1], xd[1:])[0].cpu().numpy()
+    with loftr_f32():
+        conf32 = loftr_native.loftr_confidence(model, xd[:1], xd[1:])[0].cpu().numpy()
+    strong = conf32.max(1) > thr
+    rec = {
+        "phase": "loftr_model", "size": [480, 640], "cells": conf32.shape[0],
+        "f32_vs_cpu_max_abs": float(np.abs(conf32 - conf_cpu).max()),
+        "f32_vs_cpu_argmax_agreement": float((conf32.argmax(1) == conf_cpu.argmax(1)).mean()),
+        "bf16_vs_f32_max_abs": float(np.abs(conf16 - conf32).max()),
+        "bf16_vs_f32_argmax_agreement": float((conf16.argmax(1) == conf32.argmax(1)).mean()),
+        "bf16_vs_f32_argmax_agreement_strong": float(
+            (conf16.argmax(1) == conf32.argmax(1))[strong].mean()),
+        "strong_cells": int(strong.sum()),
+        "above_threshold_f32": int((conf32 > thr).sum()),
+        "above_threshold_bf16": int((conf16 > thr).sum()),
+        "above_threshold_both": int(((conf32 > thr) & (conf16 > thr)).sum()),
+    }
+    # the matcher's sets: the batched database match against serial calls,
+    # and the bf16 pair against the f32 one
+    frames = [_Frame(0, a), _Frame(1, b), _Frame(2, a)]
+    query = _Frame(9, b)
+    batched = [_match_set(r) for r in m.match_against_many(query, frames)]
+    serial = [_match_set(m.match_frames(query, f)) for f in frames]
+    rec["many_vs_serial_matches"] = [[len(p), len(q)] for p, q in zip(batched, serial)]
+    rec["many_vs_serial_jaccard"] = [_jaccard(p, q) for p, q in zip(batched, serial)]
+    pair16 = _match_set(m.match_frames(frames[0], frames[1]))
+    with loftr_f32():
+        m32 = LoftrFeatureMatcher(threshold=thr, device=dev)
+        pair32 = _match_set(m32.match_frames(frames[0], frames[1]))
+    rec["match_frames_bf16"], rec["match_frames_f32"] = len(pair16), len(pair32)
+    rec["match_frames_common"] = len(pair16 & pair32)
+    # fine_refine on the f32 pair's cells, bf16 against f32 (model pixels)
+    f32_cells = np.array([[(x1 // 16) + 40 * (y1 // 16), (x2 // 16) + 40 * (y2 // 16)]
+                          for x1, y1, x2, y2 in sorted(pair32)], np.int64).reshape(-1, 2)
+    cells = torch.from_numpy(f32_cells).to(dev)
+    fine16 = loftr_native.encode_with_fine(model, xd)[1]
+    off16 = loftr_native.fine_refine(fine16[0], fine16[1], cells[:, 0], cells[:, 1])
+    with loftr_f32():
+        fine32 = loftr_native.encode_with_fine(model, xd)[1]
+        off32 = loftr_native.fine_refine(fine32[0], fine32[1], cells[:, 0], cells[:, 1])
+    off16, off32 = off16.cpu().numpy(), off32.cpu().numpy()
+    rec["fine_matches"] = len(f32_cells)
+    rec["fine_offsets_bf16_vs_f32_max_abs_px"] = float(np.abs(off16 - off32).max())
+    rec["fine_offsets_bf16_vs_f32_median_abs_px"] = float(np.median(np.abs(off16 - off32)))
+    # times: CUDA events, median of 20 calls after a warm-up
+    feats = loftr_native.encode(model, xd)
+    stack = feats[torch.arange(8, device=dev) % 2]
+    rec["encode_ms"] = _cuda_ms(lambda: loftr_native.encode(model, xd[:1]))
+    rec["confidence_ms"] = _cuda_ms(
+        lambda: loftr_native.confidence_from_features(model, feats[:1], feats[1:]))
+    rec["match_one_against_many_8_ms"] = _cuda_ms(
+        lambda: loftr_native.match_one_against_many(model, feats[1:], stack, m.max_matches))
+    with loftr_f32():
+        rec["encode_f32_ms"] = _cuda_ms(lambda: loftr_native.encode(model, xd[:1]))
+        rec["confidence_f32_ms"] = _cuda_ms(
+            lambda: loftr_native.confidence_from_features(model, feats[:1], feats[1:]))
+    if not (rec["f32_vs_cpu_max_abs"] < 1e-5 and rec["f32_vs_cpu_argmax_agreement"] > 0.999):
+        raise AssertionError(f"the card's f32 LoFTR differs from the CPU's: {rec}")
+    if rec["bf16_vs_f32_argmax_agreement_strong"] < MIN_LOFTR_BF16_ARGMAX:
+        raise AssertionError(f"the card's bf16 LoFTR moved the strong matches: {rec}")
+    if min(rec["many_vs_serial_jaccard"]) < MIN_LOFTR_MANY_JACCARD:
+        raise AssertionError(f"match_against_many differs from serial matches: {rec}")
+    if not (np.isfinite(off16).all() and np.abs(off16).max() <= 8.0 + 1e-3):
+        raise AssertionError(f"fine_refine offsets leave the cell: {rec}")
+    return rec
+
+
+@contextlib.contextmanager
+def capture_pose_problems(n_slots: int, keep: int = 2):
+    """Record (copies of) the first `keep` pose_opt.pose_optimize problems
+    of n_slots edge slots, without changing what is computed."""
+    real = pose_opt.pose_optimize
+    got: list = []
+
+    def spy(*args):
+        if len(got) < keep and args[1].shape[0] == n_slots:
+            got.append([a.clone() for a in args])
+        return real(*args)
+
+    with mock.patch.object(pose_opt, "pose_optimize", spy):
+        yield got
+
+
+def check_b2_loftr(prob) -> dict:
+    """Phase b2_loftr: kernel B2 against its plain version on a problem taken
+    from the fused LoFTR step (one slot per cell, the coarse-cell
+    information weight), then its bare, wrapper and plain times."""
+    T0, X, uv, valid, K, info = prob
+    rec = {"phase": "b2_loftr", "slots": int(X.shape[0]), "valid": int(valid.sum()),
+           "info": float(info[0]),
+           **compare_b2(pose_opt_cuda.pose_optimize_cuda(*prob),
+                        pose_opt.pose_optimize_plain(*prob), "LoFTR step")}
+    rec["ms"] = _per_launch_ms(b2_bare(*prob))
+    rec["wrapper_ms"] = _per_launch_ms(lambda: pose_opt_cuda.pose_optimize_cuda(*prob))
+    rec["plain_ms"] = _cuda_ms(lambda: pose_opt.pose_optimize_plain(*prob))
+    rec["bound_ms"], rec["bound_by"] = b2_bound(rec["slots"], rec["valid"])
+    return rec
+
+
+def check_loftr_run(run: dict, kernels: bool) -> None:
+    """A LoFTR System drive's bounds: it initializes, is never lost after,
+    the frame ATE stays under MAX_LOFTR_ATE; no frame launches B1; the fused
+    flows complete MIN_STEADY_SHARE of the timed frames in run_steady, each
+    through two B2 launches on a card, and the pipelined mode consumes a
+    speculative step on as many unless a keyframe event changed the window."""
+    if run["first_ok_frame"] is None:
+        raise AssertionError("the LoFTR System never initialized")
+    if run["lost_frames"] or run["not_ok_after_first_ok"]:
+        raise AssertionError(f"LoFTR tracking was lost: {run['states']}")
+    if not run["ate_frames"] <= MAX_LOFTR_ATE:
+        raise AssertionError(f"LoFTR frame ATE {run['ate_frames']}")
+    if run["launches"]["b1"]:
+        raise AssertionError(f"the LoFTR System launched B1: {run['launches']}")
+    n_tracked = run["frames"] - run["first_ok_frame"] - 1
+    if kernels and run["launches"]["b2"] < n_tracked:
+        raise AssertionError(f"B2 launches {run['launches']} over {n_tracked} tracked frames")
+    if run["flow"] == "unfused":
+        return
+    if run["timed_paths"]["run_steady"] < MIN_STEADY_SHARE * run["timed_frames"]:
+        raise AssertionError(f"fused LoFTR completed {run['timed_paths']} of "
+                             f"{run['timed_frames']} timed frames: {run['fused_stats']}")
+    if run["flow"] == "pipelined":
+        # a keyframe event changes the window, and the next dispatches are
+        # skipped by design (skip_ctx_changed, as in the JAX package): every
+        # other timed frame must consume its speculative step
+        st = run["timed_stats"]
+        if st.get("hit", 0) + st.get("skip_ctx_changed", 0) < \
+                MIN_STEADY_SHARE * run["timed_frames"]:
+            raise AssertionError(f"pipelined LoFTR hits {st} over {run['timed_frames']} "
+                                 "timed frames")
+    if kernels and run["flow"] == "fused":
+        bad = [i for i, (p, n) in enumerate(zip(run["frame_path"], run["frame_launches"]))
+               if p == "done_steady" and n != {"b1": 0, "b2": 2}]
+        if bad:
+            raise AssertionError(f"fused LoFTR frames {bad} launched "
+                                 f"{[run['frame_launches'][i] for i in bad]}")
+
+
+def loftr_system_phases(dev, cfg: SystemConfig = SYSTEM_LOFTR) -> dict:
+    """Phases system_loftr (reference-twin flow), system_loftr_fused (the
+    one-step fused_loftr path), system_loftr_pipelined and b2_loftr (see the
+    module docstring). Returns the drives' launches."""
+    kernels = dev.type == "cuda"
+    world, poses, images = render_system(cfg._replace(n_timed=cfg.n_timed + PROFILE_FRAMES))
+    runs, launches, problems = {}, {"b1": 0, "b2": 0}, []
+    names = {"unfused": "system_loftr", "fused": "system_loftr_fused",
+             "pipelined": "system_loftr_pipelined"}
+    for flow in ("unfused", "fused", "pipelined"):
+        sync_check = sync_free_dispatch() if kernels and flow == "pipelined" else \
+            contextlib.nullcontext({"dispatches": None})
+        capture = capture_pose_problems(LOFTR_B2_SLOTS) if flow == "fused" else \
+            contextlib.nullcontext([])
+        with sync_check as checked, capture as got:
+            run, prof = profile_tail(dev, cfg, world, poses, images, flow, PROFILE_FRAMES,
+                                     matcher="loftr")
+        problems += got
+        runs[flow] = run
+        for k in launches:
+            launches[k] += run["launches_total"][k]
+        rec = {"phase": names[flow], "matcher": "loftr", **system_record(run),
+               "states": run["states"], "frame_path": run["frame_path"], "profile": prof}
+        if flow == "fused":
+            rec["pair_ate_vs_unfused"], rec["pair_frames"] = trajectory_pair(
+                run["system"], runs["unfused"]["system"])
+        if flow == "pipelined":
+            rec["pair_ate_vs_fused"], rec["pair_frames"] = trajectory_pair(
+                run["system"], runs["fused"]["system"])
+            rec["sync_free_dispatches"] = checked["dispatches"]
+        _print(rec)
+        check_loftr_run(run, kernels)
+        if "pair_frames" in rec:
+            pair = rec.get("pair_ate_vs_unfused", rec.get("pair_ate_vs_fused"))
+            if not (pair < MAX_LOFTR_PAIR_ATE and rec["pair_frames"] >= 10):
+                raise AssertionError(f"{names[flow]}: trajectory pair ATE {pair} over "
+                                     f"{rec['pair_frames']} frames")
+        if kernels and flow == "pipelined" and not checked["dispatches"]:
+            raise AssertionError("no LoFTR dispatch ran under the sync debug mode")
+    if not problems:
+        raise AssertionError("the fused LoFTR drive handed B2 no 1200-slot problem")
+    b2 = check_b2_loftr(problems[-1]) if kernels else None
+    if b2 is not None:
+        _print(b2)
+    return {"launches": launches, "b2": b2}
+
+
+def run_quality_loftr(device, n_poses: int = QUALITY_LOFTR_POSES) -> dict:
+    """quality_bench.run_quality_loftr's regime with the port's classes: the
+    smooth rect-loop world at 320x240 (resized to the model's 480x640), its
+    first n_poses poses, LoftrFeatureMatcher(threshold=0.1, fine=False),
+    minIniMatchCount=40, set_minimum_keyframes(0), the initialization gate
+    re-pressed whenever the state is NO_IMAGES_YET; the default fused flow."""
+    world = sim.PlaneWorld(plane_z=2.0, second_plane=sim.RECT_LOOP_PLANES, texture="smooth")
+    poses = sim.rect_loop_trajectory(3.0, 2.2, LOOP_FULL.step)[:n_poses]
+    images = [world.render(T) for T in poses]
+    reset_frame_ids()
+    reset_map_ids()
+    params = SlamParameters(fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
+                            minIniMatchCount=40, initializerModelFallback=True)
+    matcher = LoftrFeatureMatcher(threshold=LOFTR_THRESHOLD, fine=False, device=device)
+    system = System(params, matcher, KeyFrameMatchDatabase(matcher), verbose=False,
+                    device=device)
+    system.toggle_initialization_allowed()
+    system.set_minimum_keyframes(0)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *_: None)
+    real_many = matcher.match_against_many
+    many_calls = []
+
+    def many(frame, others):
+        many_calls.append(len(others))
+        return real_many(frame, others)
+
+    matcher.match_against_many = many
+    detect.detect_maps_cuda.launches = 0
+    pose_opt_cuda.pose_lm_batched.launches = 0
+    gt_t, gt_p, states, frame_ms = [], [], [], []
+    t_drive = time.perf_counter()
+    for i, T in enumerate(poses):
+        t0 = time.perf_counter()
+        system.track_monocular(images[i], i * 0.1)
+        sync()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        gt_t.append(i * 0.1)
+        gt_p.append(-(T[:3, :3].T @ T[:3, 3]))
+        if system.tracker.state.name == "NO_IMAGES_YET":
+            system.toggle_initialization_allowed()
+        states.append(system.tracker.state.name)
+    wall_s = time.perf_counter() - t_drive
+    finite, ortho = pose_ortho_errors(system) if system.map.n_keyframes() else (True, 0.0)
+    stats = fused_host.pipe_stats(system.tracker)
+    return {
+        "phase": "quality_loftr", "poses": len(poses), "size": [world.h, world.w],
+        "states": "".join(s[0] for s in states),
+        "ok_share": states.count("OK") / len(states),
+        "first_ok_frame": states.index("OK") if "OK" in states else None,
+        "final_state": states[-1], "final_ate": frame_ate(system, gt_t, gt_p),
+        "keyframes": system.map.n_keyframes(), "map_points": system.map.n_map_points(),
+        "match_against_many_calls": len(many_calls),
+        "match_against_many_keyframes": sum(many_calls),
+        "poses_finite": finite, "max_ortho_err": ortho,
+        "launches": _launches(), "fps": len(states) / wall_s, "wall_s": wall_s,
+        "frame_p50_ms": _pct(frame_ms, 50), "frame_p95_ms": _pct(frame_ms, 95),
+        "fused_stats": {k: v for k, v in stats.items() if not k.endswith("_samples_ms")},
+    }
+
+
+def check_quality_loftr(rec: dict) -> None:
+    """The LoFTR quality drive's bounds: it initializes, grows a map of at
+    least two keyframes, scans the keyframe database in batched calls, and
+    keeps every keyframe pose finite and orthonormal. Its OK share and ATE
+    are recorded: the JAX package has no record of this drive to hold them
+    to (BENCH_r05 skipped it)."""
+    if rec["first_ok_frame"] is None or rec["keyframes"] < 2:
+        raise AssertionError(f"the LoFTR quality drive built no map: {rec}")
+    if rec["match_against_many_calls"] < 1:
+        raise AssertionError(f"the LoFTR quality drive made no batched match: {rec}")
+    if not rec["poses_finite"] or rec["max_ortho_err"] >= MAX_ORTHO_ERR:
+        raise AssertionError(f"LoFTR quality keyframe poses: {rec}")
+
+
 def _print(rec):
     print(json.dumps(rec), flush=True)
 
@@ -1342,6 +1865,7 @@ def fused_phases(dev, sys_cfg: SystemConfig, kf_cfg: SystemConfig, world_s, pose
     check_fused_run(fused_plain, kernels=False)
     if not (pair < MAX_FUSED_PAIR_ATE and n_pair >= 10):
         raise AssertionError(f"fused vs unfused trajectories: ATE {pair} over {n_pair} frames")
+    _print({"phase": "checkpoint", **checkpoint_round_trip(dev, sys_cfg, world_s, fused["system"])})
 
     # ---- the pipelined mode: track_monocular_pipelined + flush_pipeline ----
     # every dispatch on a card runs under the sync debug mode (the CPU has none)
@@ -1427,6 +1951,7 @@ def main() -> int:
     b2 = check_b2(dev)
     _print(b2)
     _print(check_extract(images[0], dev, cfg.max_features))
+    _print(check_hamming(dev))
 
     # ---- the slice: chained steady steps through both kernels ----
     seed = seed_map(dev, cfg, world, poses, images)
@@ -1552,6 +2077,15 @@ def main() -> int:
     fused_launches = fused_phases(dev, sys_cfg, SYSTEM_KF, world_s, poses_s, images_s, run)
     loop_launches = reloc_loop_phase(dev, LOOP_FULL)
 
+    # ---- the LoFTR matcher: model, System in three flows, B2 at 1200 slots ----
+    _print(check_loftr_model(dev))
+    loftr = loftr_system_phases(dev)
+    quality = run_quality_loftr(dev)
+    _print(quality)
+    check_quality_loftr(quality)
+    loftr_launches = {k: loftr["launches"][k] + quality["launches"][k] for k in ("b1", "b2")}
+    b2_loftr = loftr["b2"]
+
     b1_stack_bound = b1_bound(dims, stacked=True)
     banded_bound = b1_bound(banded_dims, stacked=False)
     full_bound = b1_bound(full_dims, stacked=False)
@@ -1561,7 +2095,8 @@ def main() -> int:
         {"name": "detect_maps", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
-         "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"] + loop_launches["b1"],
+         "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"] + loop_launches["b1"]
+         + loftr_launches["b1"],
          "max_abs_err": max(b1["max_abs_err"].values()),
          "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_stack_bound[0],
@@ -1585,11 +2120,17 @@ def main() -> int:
         {"name": "pose_lm", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
-         "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"] + loop_launches["b2"],
+         "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"] + loop_launches["b2"]
+         + loftr_launches["b2"],
          "max_abs_err": b2["edges_2000"]["T_max_abs_err"],
          "ms": b2_ms, "wrapper_ms": b2_wrapper_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_b[0],
-         "bound_by": b2_b[1], "library_ms": None, "design": DESIGN},
+         "bound_by": b2_b[1], "library_ms": None, "design": DESIGN,
+         "loftr_launches": loftr_launches["b2"],
+         "loftr_slots": b2_loftr["slots"], "loftr_valid": b2_loftr["valid"],
+         "loftr_max_abs_err": b2_loftr["T_max_abs_err"], "loftr_ms": b2_loftr["ms"],
+         "loftr_wrapper_ms": b2_loftr["wrapper_ms"], "loftr_plain_ms": b2_loftr["plain_ms"],
+         "loftr_bound_ms": b2_loftr["bound_ms"], "loftr_bound_by": b2_loftr["bound_by"]},
     ]})
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -288,3 +288,31 @@ def map_from_snapshot(snap: dict, kf_db=None, classes=None):
     KeyFrame.next_id = max([KeyFrame.next_id, *(k + 1 for k in kfs)])
     MapPoint.next_id = max([MapPoint.next_id, *(m + 1 for m in mps)])
     return map_, kfs, mps
+
+
+def loftr_params(np_dict, device=device_mod.DEFAULT) -> dict:
+    """The JAX package's LoFTR parameter dict ({"backbone/conv1/w": array,
+    ...}, as `np.load` of loftr_teacher.npz or its `load_params` gives it)
+    -> the state dict of `models.loftr_native.LoftrCoarse` on `device`.
+    Names map one to one ("backbone/layer2/block0/down/w" ->
+    "backbone.layer2.0.down.weight", "coarse/3/wq" -> "layers.3.wq"); the
+    stored 480x640 positional table is left out, since the model
+    regenerates it for any grid."""
+    device = device_mod.resolve(device)
+    leaf = {"w": "weight", "b": "bias"}
+    state = {}
+    for key, value in np_dict.items():
+        parts = key.split("/")
+        if parts[0] == "posenc":
+            continue
+        if parts[0] == "coarse":
+            name = f"layers.{parts[1]}.{parts[2]}"
+        elif parts[0] == "backbone" and parts[1].startswith("layer"):
+            block = parts[2].removeprefix("block")
+            name = f"backbone.{parts[1]}.{block}.{parts[3]}.{leaf[parts[4]]}"
+        elif parts[0] == "backbone":
+            name = f"backbone.{parts[1]}.{leaf[parts[2]]}"
+        else:
+            raise KeyError(f"unknown LoFTR parameter {key}")
+        state[name] = torch.from_numpy(np.array(value, np.float32)).to(device)
+    return state

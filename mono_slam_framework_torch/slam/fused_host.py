@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from mono_slam_framework_torch.matchers.base import MatchFramesResult
+from mono_slam_framework_torch.matchers.loftr_matcher import LoftrFeatureMatcher
 from mono_slam_framework_torch.matchers.orb_matcher import OrbFeatureMatcher
 from mono_slam_framework_torch.ops import orb
 from mono_slam_framework_torch.slam import fused_tracking
@@ -807,7 +808,13 @@ def dispatch_steady_spec(tracker, image) -> dict | None:
     following frame. The consumption side (run_steady's spec branch)
     re-validates that nothing touched the map state in between and falls
     back to a fresh dispatch otherwise. Queues work without synchronizing.
+    A LoFTR matcher's step is dispatched by its twin,
+    fused_loftr.dispatch_steady_spec, as in the JAX package.
     """
+    if isinstance(tracker.matcher, LoftrFeatureMatcher):
+        from mono_slam_framework_torch.slam import fused_loftr
+
+        return fused_loftr.dispatch_steady_spec(tracker, image)
     prep = prepare_spec_inputs(tracker, image)
     if prep is None:
         return None

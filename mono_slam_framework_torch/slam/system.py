@@ -12,11 +12,13 @@ asks for the CPU); the matcher must extract on the same device. Tracking
 runs the default fused flow (`fusedTracking=True`, `fusedOneStep=True`:
 slam/fused_host.py) or the reference-twin flow (`fusedTracking=False`);
 `track_monocular_pipelined` overlaps each frame's device work with the
-caller's next frame. A lost track relocalizes (EPnP over the keyframe
+caller's next frame, with either matcher (ORB: slam/fused_host.py; LoFTR:
+slam/fused_loftr.py). A lost track relocalizes (EPnP over the keyframe
 database) and a detected loop is corrected (Sim(3) pre-alignment, essential
-graph, fuse, loop global BA), both on the System's device. Not ported yet,
-and raising when called: the live viewer (`start_gui`) and checkpoints
-(ROADMAP §A).
+graph, fuse, loop global BA), both on the System's device. As in the JAX
+package, the System always builds a map drawer and the tracker updates it
+on every OK frame; `start_gui` starts its viewer thread. Checkpoints keep
+the JAX package's .npz layout (io/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from mono_slam_framework_torch.slam.loop_closing import LoopClosing
 from mono_slam_framework_torch.slam.map_model import KeyFrameFactory, Map
 from mono_slam_framework_torch.slam.tracking import Tracking
 from mono_slam_framework_torch.utils.profiling import StageTimer
+from mono_slam_framework_torch.viz.map_drawer import MapDrawer
 
 
 def _quaternion(Rwc: np.ndarray) -> np.ndarray:
@@ -68,8 +71,9 @@ class System:
         keyframe_factory = keyframe_factory or KeyFrameFactory()
 
         self.map = Map()
+        self.map_drawer = MapDrawer(self.map)
         self.tracker = Tracking(
-            None,  # no map drawer: the viewer is not ported (ROADMAP §A)
+            self.map_drawer,
             self.map,
             self.kf_db,
             parameters,
@@ -204,9 +208,20 @@ class System:
                     f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n"
                 )
 
-    def start_gui(self, *args, **kwargs) -> None:
-        """The map drawer and live viewer (System::StartGUI twin)."""
-        raise NotImplementedError("viz MapDrawer: ROADMAP §A")
+    def start_gui(
+        self,
+        out_path: str | None = None,
+        interval: float = 1.0,
+        http_port: int | None = None,
+    ) -> None:
+        """Start map drawing + the live viewer thread (System::StartGUI twin;
+        the headless 'window' is a rolling PNG and an optional HTTP endpoint,
+        see viz/map_drawer.py)."""
+        self.map_drawer.start()
+        self.map_drawer.start_viewer(out_path, interval, http_port)
+
+    def stop_gui(self) -> None:
+        self.map_drawer.stop()
 
     def set_minimum_keyframes(self, n: int) -> None:
         self.tracker.set_minimum_keyframes(n)
@@ -229,8 +244,13 @@ class System:
         return self.tracker.last_metrics
 
     def save_checkpoint(self, path: str) -> None:
-        """Full-map snapshot."""
-        raise NotImplementedError("checkpoint IO: ROADMAP §A")
+        """Full-map snapshot (io/checkpoint.py; the reference exports only a
+        trajectory)."""
+        from mono_slam_framework_torch.io import checkpoint
+
+        checkpoint.save_map(path, self.map)
 
     def load_checkpoint(self, path: str) -> None:
-        raise NotImplementedError("checkpoint IO: ROADMAP §A")
+        from mono_slam_framework_torch.io import checkpoint
+
+        checkpoint.load_map(path, self.map, self.kf_db, self.params)

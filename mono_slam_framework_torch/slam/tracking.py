@@ -15,7 +15,8 @@ kernel B2 on a card — and init RANSAC).
 PyTorch counterpart of `mono_slam_framework_tpu/slam/tracking.py`: the
 fused steady branches (`fusedTracking=True`, the `SlamParameters` default:
 slam/fused_host.py's `run_steady`, then `run`, then the reference-twin host
-path), the unfused flow (`fusedTracking=False`) and relocalization
+path), the LoFTR matcher's one-step path (slam/fused_loftr.py), the unfused flow
+(`fusedTracking=False`) and relocalization
 (batched EPnP-RANSAC over the keyframe database's candidates, then the pose
 LM; the next two frames take the host path, as the JAX package does).
 """
@@ -29,7 +30,7 @@ import torch
 
 from mono_slam_framework_torch.estimation import Initializer, epnp
 from mono_slam_framework_torch.geometry import projection
-from mono_slam_framework_torch.slam import fused_host
+from mono_slam_framework_torch.slam import fused_host, fused_loftr
 from mono_slam_framework_torch.slam.device_io import optimize_frame_pose, run_global_ba
 from mono_slam_framework_torch.slam.frame import Frame
 from mono_slam_framework_torch.slam.map_model import MapPoint
@@ -198,6 +199,13 @@ class Tracking:
                                 fused_host.count(self, "done_two_program")
                         if fused is None:
                             fused_host.count(self, "done_host")
+                    elif fused_loftr.applicable(self):
+                        # the LoFTR twin of the one-step path: the whole
+                        # steady frame with ONE readback (slam/fused_loftr.py)
+                        fused = fused_loftr.run_steady(self)
+                        fused_host.count(
+                            self, "done_host" if fused is None else "done_steady"
+                        )
                     if fused is not None:
                         ok = fused
                         fused_done = True

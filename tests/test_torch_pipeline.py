@@ -4,12 +4,13 @@ chip_smoke.run_system, held to that test's own bounds: OK on all but at most
 4 frames after the first OK, >= 2 keyframes, > 50 map points, keyframe ATE
 < 0.15 and early per-frame ATE < 0.05 (scale-aligned, from the TUM
 exports). Also the public API around it (match image, metrics, reset), the
-initialization gate, the entry points' default device, that the default
-(fused) parameters build a System, and what the port still refuses with
-NotImplementedError (the viewer and checkpoints).
+initialization gate, the entry points' default device, and the map drawer
+(updated on every OK frame), start_gui / stop_gui and test_pipeline.py's
+checkpoint round trip on the tracked map.
 """
 
 import inspect
+import time
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ import chip_smoke
 import torch_parity  # noqa: F401  (pins torch to one thread)
 from mono_slam_framework_torch import convert
 from mono_slam_framework_torch.io import trajectory
-from mono_slam_framework_torch.matchers import OrbFeatureMatcher
+from mono_slam_framework_torch.matchers import LoftrFeatureMatcher, OrbFeatureMatcher
 from mono_slam_framework_torch.params import SlamParameters
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System
 from mono_slam_framework_torch.slam.tracking import TrackingState
@@ -71,6 +72,44 @@ def test_tracks_the_synthetic_sequence(run, tmp_path):
     assert abs(r["ate_kf"] - ate) < 1e-4
 
 
+def test_gui_and_checkpoints_work(run, tmp_path):
+    """The map drawer on the tracked map (updated on every OK frame, as the
+    JAX tracker does), start_gui / stop_gui with the live viewer, and
+    test_pipeline.py:108-122's checkpoint round trip on the port."""
+    world, _, r = run
+    system = r["system"]
+    assert system.params.fusedTracking is False  # run_system's default flow
+    drawer = system.map_drawer
+    assert system.tracker.map_drawer is drawer
+    # one camera position per OK frame after the one that initialized (that
+    # frame only snapshots the map, Tracking.cc:113)
+    assert len(drawer.history) == r["states"].count("OK") - 1
+    assert drawer.points.shape == (system.map.n_map_points(), 3)
+    png = tmp_path / "live.png"
+    system.start_gui(str(png), interval=0.05)
+    assert drawer.running and drawer._viewer_thread is not None
+    drawer.update()
+    deadline = time.time() + 20
+    while not png.exists() and time.time() < deadline:
+        time.sleep(0.1)
+    system.stop_gui()
+    assert png.exists() and not drawer.running and drawer._viewer_thread is None
+
+    n_kf = system.map.n_keyframes()
+    n_mp = system.map.n_map_points()
+    path = str(tmp_path / "map.npz")
+    system.save_checkpoint(path)
+    system2 = _system(world)
+    system2.load_checkpoint(path)
+    assert system2.map.n_keyframes() == n_kf
+    assert system2.map.n_map_points() >= 0.8 * n_mp
+    kf_l = sorted(system2.map.all_keyframes(), key=lambda k: k.id)[0]
+    kf_o = sorted(system.map.all_keyframes(), key=lambda k: k.id)[0]
+    np.testing.assert_allclose(kf_l.Tcw, kf_o.Tcw, atol=1e-6)
+    assert kf_l.keypoint_map.size > 0
+    assert len(system2.kf_db.frames) == n_kf
+
+
 def test_public_api_and_reset(run):
     world, _, r = run
     system = r["system"]
@@ -103,7 +142,8 @@ def test_initialization_gate():
 
 
 def test_entry_points_default_to_the_card():
-    entry_points = [OrbFeatureMatcher.__init__, System.__init__, convert.features_from_numpy,
+    entry_points = [OrbFeatureMatcher.__init__, LoftrFeatureMatcher.__init__, System.__init__,
+                    convert.features_from_numpy, convert.loftr_params,
                     convert.steady_inputs_from_numpy, convert.ba_problem_from_numpy]
     for fn in entry_points:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
@@ -126,14 +166,3 @@ def test_system_refuses_another_device_than_its_matcher():
                device="meta")
 
 
-def test_unported_paths_raise():
-    world = chip_smoke.sim.PlaneWorld()
-    # SlamParameters' default is the fused flow, which is ported
-    system = _system(world)
-    assert system.params.fusedTracking and system.params.fusedOneStep
-    with pytest.raises(NotImplementedError, match="MapDrawer"):
-        system.start_gui()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        system.save_checkpoint("unused")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        system.load_checkpoint("unused")

@@ -3,10 +3,12 @@
 optionally under torch.profiler.
 
     python3 tools/torch_profile_system.py [--device cuda|cpu]
-        [--flow unfused|fused|pipelined|quality] [--profile N]
+        [--flow unfused|fused|pipelined|quality|quality_loftr] [--matcher orb|loftr]
+        [--loftr-f32] [--profile N]
 
 Runs chip_smoke.run_system at the system operating point (SYSTEM_FULL:
-640x480, 2000 features, 12 warm + 30 timed frames) in the given flow
+640x480, 2000 features, 12 warm + 30 timed frames; with `--matcher loftr`
+chip_smoke's LoFTR System, SYSTEM_LOFTR) in the given flow
 (chip_smoke.FLOWS; default unfused, fusedTracking=False) and prints its
 record as one JSON line: initialization frame, states, keyframes, map
 points, ATE, frames/s, latency, the stage split and, for the fused flows,
@@ -16,7 +18,13 @@ bounds. With --profile N on a card, the last N calls run under
 torch.profiler and the line adds, per frame: device-busy ms, the idle
 share, device ops, device->host copies, synchronizations (stream, device
 and event synchronizations and blocking copies, the closing synchronize
-left out) and the top device kernels; plus the path of each profiled frame.
+left out) and the top device kernels; plus the path of each profiled frame
+(chip_smoke.profile_tail).
+
+`--flow quality_loftr` runs chip_smoke.run_quality_loftr (the LoFTR
+quality drive: the smooth rect-loop world at 320x240, 40 poses) and prints
+its record; `--loftr-f32` runs the LoFTR model's products in f32 on the
+card as well (chip_smoke.loftr_f32), for comparison with its bf16 path.
 
 `--flow quality` runs chip_smoke's reloc_loop drive instead
 (chip_smoke.run_loop_drive at LOOP_FULL: the JAX package's quality drive,
@@ -32,7 +40,7 @@ steps at the drive's size on each run's final map (`correction_cost`).
 from __future__ import annotations
 
 import argparse
-import collections
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -44,64 +52,7 @@ sys.path.insert(0, str(ROOT))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
-
 import chip_smoke  # noqa: E402
-from mono_slam_framework_torch.slam import fused_host  # noqa: E402
-
-# host-side CUDA runtime calls that wait for the device
-SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
-              "cudaMemcpy")
-
-
-def profile_tail(dev, cfg, world, poses, images, flow: str, k: int) -> tuple:
-    """Drive all but the last k frames with run_system, then the last k
-    calls under torch.profiler. Returns (run_system's record of the head,
-    the per-frame device figures of the profiled calls)."""
-    n = len(images) - k
-    system = chip_smoke.build_system(dev, cfg, world, flow)
-    head = chip_smoke.run_system(dev, cfg._replace(n_timed=n - cfg.n_warm), world,
-                                 poses[:n], images[:n], system=system, flow=flow)
-    pipelined = flow == "pipelined"
-    step = system.track_monocular_pipelined if pipelined else system.track_monocular
-    stats = fused_host.pipe_stats(system.tracker)
-    if pipelined:  # run_system flushed: start the pipeline again on frame n
-        step(images[n], timestamp=n * 0.1)
-    paths = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        for i in range(n + pipelined, len(images) + pipelined):
-            before = {p: stats.get(p, 0) for p in chip_smoke.PATHS}
-            if i < len(images):
-                step(images[i], timestamp=i * 0.1)
-            else:
-                system.flush_pipeline()
-            paths.append(next((p for p in chip_smoke.PATHS if stats.get(p, 0) > before[p]), None))
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t1
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name: dict[str, list[float]] = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
-    d2h = [e.name for e in kernels if "DtoH" in e.name]
-    syncs = [e.name for e in events if e.name in SYNC_CALLS]
-    syncs.remove("cudaDeviceSynchronize")  # the closing synchronize
-    return head, {
-        "frames": k, "paths": paths, "final_state": system.tracker.state.name,
-        "wall_ms_per_frame": 1e3 * wall / k,
-        "device_busy_ms_per_frame": busy_us / 1e3 / k,
-        "idle_share": 1.0 - (busy_us / 1e6) / wall,
-        "device_ops_per_frame": len(kernels) / k,
-        "dtoh_copies_per_frame": len(d2h) / k,
-        "synchronizations_per_frame": len(syncs) / k,
-        "by_name_per_frame": {n: c / k for n, c in collections.Counter(d2h + syncs).items()},
-        "top": [{"name": name[:90], "ms_per_frame": sum(v) / 1e3 / k,
-                 "calls_per_frame": len(v) / k} for name, v in top],
-    }
-
 
 def correction_cost(system, dev, reps: int = 2) -> list:
     """The steps of a loop correction at the size of `system`'s map, timed on
@@ -156,7 +107,11 @@ def correction_cost(system, dev, reps: int = 2) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--flow", default="unfused", choices=sorted(chip_smoke.FLOWS) + ["quality"])
+    ap.add_argument("--flow", default="unfused",
+                    choices=sorted(chip_smoke.FLOWS) + ["quality", "quality_loftr"])
+    ap.add_argument("--loftr-f32", action="store_true",
+                    help="the LoFTR model's products in f32 on the card too")
+    ap.add_argument("--matcher", default="orb", choices=("orb", "loftr"))
     ap.add_argument("--profile", type=int, default=0)
     ap.add_argument("--repeat", type=int, default=1, help="quality flow: runs in one process")
     ap.add_argument("--correction", action="store_true",
@@ -166,7 +121,7 @@ def main() -> int:
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("--device cuda needs a CUDA card", file=sys.stderr)
         return 1
-    if args.profile and (dev.type != "cuda" or args.flow == "quality"):
+    if args.profile and (dev.type != "cuda" or args.flow.startswith("quality")):
         print("--profile needs --device cuda and a System flow", file=sys.stderr)
         return 1
     rec = {"device": str(dev), "flow": args.flow}
@@ -175,6 +130,13 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True,
         ).stdout.strip()
+    precision = chip_smoke.loftr_f32() if args.loftr_f32 else contextlib.nullcontext()
+    rec["loftr_products"] = "f32" if args.loftr_f32 or dev.type != "cuda" else "bf16"
+    if args.flow == "quality_loftr":
+        with precision:
+            rec.update(chip_smoke.run_quality_loftr(dev))
+        print(json.dumps(rec), flush=True)
+        return 0
     if args.flow == "quality":
         world, poses, images = chip_smoke.render_loop(chip_smoke.LOOP_FULL)
         for i in range(args.repeat):
@@ -186,14 +148,18 @@ def main() -> int:
                 run["correction_cost"] = correction_cost(system, dev)
             print(json.dumps({**rec, "run": i, "pose_checksum": checksum, **run}), flush=True)
         return 0
-    cfg = chip_smoke.SYSTEM_FULL
+    cfg = chip_smoke.SYSTEM_LOFTR if args.matcher == "loftr" else chip_smoke.SYSTEM_FULL
     world, poses, images = chip_smoke.render_system(cfg)
+    rec["matcher"] = args.matcher
     t0 = time.perf_counter()
-    if not args.profile:
-        run = chip_smoke.run_system(dev, cfg, world, poses, images, flow=args.flow)
-    else:
-        run, rec["profile"] = profile_tail(dev, cfg, world, poses, images, args.flow,
-                                           args.profile)
+    with precision:
+        if not args.profile:
+            system = chip_smoke.build_system(dev, cfg, world, args.flow, args.matcher)
+            run = chip_smoke.run_system(dev, cfg, world, poses, images, system=system,
+                                        flow=args.flow)
+        else:
+            run, rec["profile"] = chip_smoke.profile_tail(
+                dev, cfg, world, poses, images, args.flow, args.profile, args.matcher)
     rec["seconds"] = time.perf_counter() - t0
     rec.update(chip_smoke.system_record(run))
     rec["states"] = run["states"]
