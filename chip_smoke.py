@@ -91,6 +91,34 @@ line and raises if it fails:
                 rect-loop world at 320x240, 40 poses, LoFTR at threshold
                 0.1): OK share, ATE, keyframes, map points, batched database
                 matches.
+ 18. native   — g++ builds the native observation graph and frame IO
+                (native/*.cc) into _build/; the graph's raw API. Fails if
+                either does not build: the System would then scan
+                covisibility in Python and the loaders decode with PIL;
+ 19. run_cli  — phase 9's 42 frames written as 8-bit grayscale PNGs (a zlib
+                encoder here) into a TUM directory, then run.main in-process
+                at 640x480 / 2000 features, in the default fused flow and
+                with --pipelined: the printed summary (42 frames, >= 2
+                keyframes, OK, keyframe ATE within MAX_CLI_ATE), the
+                --map-out checkpoint reloaded with the map's counts, the
+                native graph in the System, B1 / B2 launched by the drive;
+                which decoder served the frames and its ms per frame with the
+                prefetcher and without;
+ 20. ab_sweep — ab_sweep.main over the same directory with ORB and LoFTR
+                (both in the reference-twin flow, as the JAX harness runs
+                them): both arms end OK; frames/s and ATE per arm;
+ 21. interactive — interactive.main's scripted session at 640x480 / 2000
+                features (OK, >= 2 keyframes, no frame dropped), then 40
+                frames fed every 32 ms through AsyncSlamDriver while its
+                worker tracks: frames dropped, final state; an exception in
+                any worker thread fails the phase;
+ 22. quality_bench — the port's quality_bench.run_quality (both arms, 141
+                poses) and run_quality_loftr on the card: no error key, ORB
+                OK share >= 0.8; the loop and the fork arm recorded;
+ 23. kf_graph — system_fused_kf's drive with Map(use_native_graph=True) and
+                with the Python scan, in turns: keyframe-event p50 / p95,
+                update_connections ms per call, and whether the drives built
+                the same map (pose checksums).
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -103,13 +131,18 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import pathlib
 import re
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
+import zlib
 from typing import NamedTuple
 from unittest import mock
 
@@ -120,18 +153,26 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from mono_slam_framework_torch import _kernels, convert, sim  # noqa: E402
+import mono_slam_framework_torch.slam as slam_pkg  # noqa: E402
+from mono_slam_framework_torch import _kernels, convert, native, sim  # noqa: E402
+from mono_slam_framework_torch import ab_sweep, interactive, quality_bench  # noqa: E402
+from mono_slam_framework_torch import run as runner  # noqa: E402
+from mono_slam_framework_torch.io import datasets  # noqa: E402
 from mono_slam_framework_torch.geometry import se3  # noqa: E402
 from mono_slam_framework_torch.io import trajectory  # noqa: E402
 from mono_slam_framework_torch.matchers import LoftrFeatureMatcher, OrbFeatureMatcher  # noqa: E402
 from mono_slam_framework_torch.models import loftr_native  # noqa: E402
+from mono_slam_framework_torch.native import frameio  # noqa: E402
 from mono_slam_framework_torch.ops import detect, hamming, orb  # noqa: E402
 from mono_slam_framework_torch.optim import pose_opt, pose_opt_cuda  # noqa: E402
 from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System  # noqa: E402
 from mono_slam_framework_torch.slam import fused_host, fused_loftr, fused_tracking  # noqa: E402
+from mono_slam_framework_torch.slam import map_model  # noqa: E402
+from mono_slam_framework_torch.slam import system as system_mod  # noqa: E402
 from mono_slam_framework_torch.slam.frame import reset_frame_ids  # noqa: E402
 from mono_slam_framework_torch.slam.map_model import MapPoint, reset_map_ids  # noqa: E402
+from mono_slam_framework_torch.utils import AsyncSlamDriver  # noqa: E402
 
 RATIO = 0.7
 FAST_THRESHOLD = 20.0
@@ -822,6 +863,11 @@ def _pct(xs, q):
     return float(np.percentile(xs, q)) if len(xs) else None
 
 
+def _reset_launches() -> None:
+    detect.detect_maps_cuda.launches = 0
+    pose_opt_cuda.pose_lm_batched.launches = 0
+
+
 def _launches() -> dict:
     return {"b1": detect.detect_maps_cuda.launches,
             "b2": pose_opt_cuda.pose_lm_batched.launches}
@@ -867,8 +913,7 @@ def run_system(device, cfg: SystemConfig, world, poses, images, system=None,
     pipelined = flow == "pipelined"
     step = system.track_monocular_pipelined if pipelined else system.track_monocular
     stats = fused_host.pipe_stats(system.tracker)
-    detect.detect_maps_cuda.launches = 0
-    pose_opt_cuda.pose_lm_batched.launches = 0
+    _reset_launches()
     states, Tcw, frame_ms, kf_event_ms, frame_launches, frame_path = [], [], [], [], [], []
     n_kf_before = 0
     t_timed = t_window = 0.0
@@ -947,7 +992,8 @@ def run_system(device, cfg: SystemConfig, world, poses, images, system=None,
         "timed_frames": n_timed,
         "fps": n_timed / (t_timed / 1e3) if n_timed else None,
         "frame_p50_ms": _pct(frame_ms, 50), "frame_p95_ms": _pct(frame_ms, 95),
-        "kf_events": len(kf_event_ms), "kf_event_p95_ms": _pct(kf_event_ms, 95),
+        "kf_events": len(kf_event_ms), "kf_event_p50_ms": _pct(kf_event_ms, 50),
+        "kf_event_p95_ms": _pct(kf_event_ms, 95),
         "stage_ms_per_frame": {k: 1e3 * v / max(n_timed, 1)
                                for k, v in system.timer.totals.items()},
         "launches": launches,
@@ -1180,8 +1226,7 @@ def run_loop_drive(device, cfg: LoopConfig, world, poses, images) -> dict:
                       "ctx_builds_at_loop": ctx0})
 
     lc.correct_loop = spy_correct
-    detect.detect_maps_cuda.launches = 0
-    pose_opt_cuda.pose_lm_batched.launches = 0
+    _reset_launches()
     states, frame_ms, kf_event_ms = [], [], []
     dropout_index = None
     t = 0.0
@@ -1772,8 +1817,7 @@ def run_quality_loftr(device, n_poses: int = QUALITY_LOFTR_POSES) -> dict:
         return real_many(frame, others)
 
     matcher.match_against_many = many
-    detect.detect_maps_cuda.launches = 0
-    pose_opt_cuda.pose_lm_batched.launches = 0
+    _reset_launches()
     gt_t, gt_p, states, frame_ms = [], [], [], []
     t_drive = time.perf_counter()
     for i, T in enumerate(poses):
@@ -1921,6 +1965,405 @@ def reloc_loop_phase(dev, cfg: LoopConfig) -> dict:
     return run["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the application layer: native runtime, dataset runner, A/B sweep,
+# interactive driver, quality bench, and the observation graph's cost
+
+
+def card(dev) -> str:
+    """What the times of a phase on `dev` were taken on: nvidia-smi's name
+    and power limit of the card, or "cpu"."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def native_phase(dev) -> dict:
+    """Phase native: build both native libraries (g++, into _build/) and
+    run the observation graph's raw API. A machine where they do not build
+    would silently run the Python covisibility scan and PIL decoding."""
+    graph, fio = native.load_library(), frameio.load_library()
+    if graph is None or fio is None:
+        raise AssertionError(f"native libraries did not build: {native.build_errors}")
+    g = native.ObservationGraph()
+    checks = [g.add(1, 10), not g.add(1, 10), g.add(1, 11), g.add(2, 10),
+              g.covis_counts(10) == {11: 1}, g.n_obs_kf(10) == 2, g.erase(1, 10),
+              g.covis_counts(10) == {}]
+    g.erase_map_point(2)
+    checks.append(g.n_obs_kf(10) == 0)
+    if not all(checks):
+        raise AssertionError(f"observation graph raw API: {checks}")
+    return {"phase": "native", "card": card(dev), "build_seconds": dict(native.build_seconds),
+            "libraries": [str(native.library_path("slamgraph.cc")),
+                          str(native.library_path("frameio.cc", frameio.LIBS))]}
+
+
+def png_gray(img: np.ndarray) -> bytes:
+    """An 8-bit grayscale PNG of `img` (uint8 [H, W]), with zlib and struct
+    only: the card's machine need not have an image library."""
+    h, w = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))  # filter 0 per row
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_tum_sequence(root, world, poses, images) -> list:
+    """A TUM RGB-D directory of the rendered drive: rgb/<t>.png as 8-bit
+    grayscale, rgb.txt and groundtruth.txt (camera centres, 0.1 s apart).
+    Returns the frames as written (uint8)."""
+    root = pathlib.Path(root)
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    lines, gt, frames = [], [], []
+    for i, (T, img) in enumerate(zip(poses, images)):
+        ts = f"{i * 0.1:.6f}"
+        u8 = np.clip(img, 0, 255).astype(np.uint8)
+        (root / "rgb" / f"{ts}.png").write_bytes(png_gray(u8))
+        frames.append(u8)
+        lines.append(f"{ts} rgb/{ts}.png")
+        Ow = -(T[:3, :3].T @ T[:3, 3])
+        gt.append(f"{ts} {Ow[0]:.6f} {Ow[1]:.6f} {Ow[2]:.6f} 0 0 0 1")
+    (root / "rgb.txt").write_text("# timestamp filename\n" + "\n".join(lines) + "\n")
+    (root / "groundtruth.txt").write_text("\n".join(gt) + "\n")
+    return frames
+
+
+def cli_argv(root, world, cfg: SystemConfig, device, *extra) -> list:
+    """run.main's arguments for the rendered TUM drive (bench.py's ORB
+    System: ratio 0.7, the initializer's model fallback)."""
+    return ["--dataset", "tum", "--path", str(root),
+            "--fx", str(world.f), "--fy", str(world.f),
+            "--cx", str(world.cx), "--cy", str(world.cy),
+            "--features", str(cfg.max_features), "--ratio", str(RATIO), "--model-fallback",
+            "--device", str(device), *extra]
+
+
+@contextlib.contextmanager
+def recorded_systems():
+    """The port's System, as the entry points import it, replaced by a
+    subclass that keeps every instance and its tracker's state after each
+    frame it completes (`states`; the pipelined mode completes each frame
+    through track_monocular too); yields the list of instances."""
+    made = []
+
+    class Recorded(System):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.states = []
+            made.append(self)
+
+        def track_monocular(self, image, timestamp):
+            super().track_monocular(image, timestamp)
+            self.states.append(self.tracker.state.name)
+
+    with mock.patch.object(slam_pkg, "System", Recorded):
+        yield made
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def run_cli(device, root, world, cfg: SystemConfig, *extra) -> dict:
+    """run.main over the TUM directory, in-process: its printed summary, the
+    System it built, the launches and the states of its frame calls."""
+    with tempfile.TemporaryDirectory() as d, recorded_systems() as made:
+        out, ckpt = f"{d}/traj.txt", f"{d}/map.npz"
+        buf = io.StringIO()
+        _reset_launches()
+        with contextlib.redirect_stdout(buf):
+            runner.main(cli_argv(root, world, cfg, device, "--quiet", "--ate", "--out", out,
+                                 "--map-out", ckpt, *extra))
+        launches = _launches()
+        summary = _last_json(buf.getvalue())
+        (system,) = made
+        other = build_system(device, cfg, world, "fused")
+        other.load_checkpoint(ckpt)
+        loaded = {"keyframes": other.map.n_keyframes(), "map_points": other.map.n_map_points(),
+                  "with_connections": sum(bool(kf.connections)
+                                          for kf in other.map.all_keyframes())}
+    return {"summary": summary, "system": system, "states": system.states,
+            "launches": launches, "loaded": loaded}
+
+
+def check_cli_run(rec: dict, n_frames: int, kernels: bool, max_ate: float) -> None:
+    """run_cli's bounds: every frame read, >= 2 keyframes, ends OK with the
+    keyframe ATE within max_ate, the checkpoint reloads with the map's
+    counts and covisibility, the System kept its observations in the native
+    graph, and through the kernels B1 ran at least once per frame after the
+    first OK one and B2 at least twice per tracked frame."""
+    s, states = rec["summary"], rec["states"]
+    if s["frames"] != n_frames or s["keyframes"] < 2 or s["final_state"] != "OK":
+        raise AssertionError(f"run.main summary {s}")
+    if not s["ate_rmse"] <= max_ate:
+        raise AssertionError(f"run.main keyframe ATE {s['ate_rmse']} > {max_ate}")
+    loaded = rec["loaded"]
+    if (loaded["keyframes"], loaded["map_points"]) != (s["keyframes"], s["map_points"]) \
+            or loaded["with_connections"] != loaded["keyframes"]:
+        raise AssertionError(f"the --map-out checkpoint reloads as {loaded}; summary {s}")
+    if rec["system"].map.obs_graph is None:
+        raise AssertionError("the runner's System scanned covisibility in Python")
+    if "OK" not in states:
+        raise AssertionError(f"states {states}")
+    first_ok = states.index("OK")
+    after, tracked = len(states) - first_ok, len(states) - first_ok - 1
+    if kernels and (rec["launches"]["b1"] < after or rec["launches"]["b2"] < 2 * tracked):
+        raise AssertionError(f"launches {rec['launches']} over {after} frames from the "
+                             f"first OK one, {tracked} tracked")
+
+
+def decode_ms(root, paths) -> dict:
+    """Which decoder serves the frames, and the ms per frame of reading the
+    whole sequence through the loader with the prefetcher and without."""
+    native_ok = [frameio.decode(p) is not None for p in paths]
+    rec = {"decoder": "native" if all(native_ok) else "PIL" if not any(native_ok) else "mixed"}
+    for prefetch in (4, 0):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in datasets.load_tum(str(root), prefetch=prefetch))
+        rec[f"decode_ms_per_frame_prefetch_{prefetch}"] = (time.perf_counter() - t0) * 1e3 / n
+    return rec
+
+
+# Bound of the CLI drive's keyframe ATE: three times the worst of the same
+# drive with the plain versions on a CPU (run.main --device cpu over the
+# 8-bit PNGs of SYSTEM_FULL's 42 frames, fused and --pipelined, on the H100
+# machine's host: ate_rmse 0.0018 over 3 keyframes in both, OK from frame 5).
+# The PNGs quantize the frames, so MAX_FUSED_*_ATE (in-memory f32 frames)
+# does not apply.
+MAX_CLI_ATE = 3 * 0.0018
+
+
+def cli_phases(dev, cfg: SystemConfig, world, poses, images, max_ate: float = MAX_CLI_ATE):
+    """Phases run_cli and ab_sweep over one TUM directory of the rendered
+    drive. Returns the directory's handle, the decoded frames' record and the
+    phases' launches."""
+    kernels = dev.type == "cuda"
+    tmp = tempfile.TemporaryDirectory()
+    root = pathlib.Path(tmp.name)
+    written = write_tum_sequence(root, world, poses, images)
+    paths = sorted(str(p) for p in (root / "rgb").glob("*.png"))
+    first = datasets._load_gray(paths[0])
+    if not np.array_equal(first, written[0].astype(np.float32)):
+        raise AssertionError("the first frame does not decode to the pixels written")
+    launches = collections.Counter()
+    for flow, extra in (("fused", ()), ("pipelined", ("--pipelined",))):
+        rec = run_cli(dev, root, world, cfg, *extra)
+        launches.update(rec["launches"])
+        _print({"phase": "run_cli", "card": card(dev), "flow": flow, **rec["summary"],
+                "states": "".join(st[0] for st in rec["states"]),
+                "launches": rec["launches"], "loaded_checkpoint": rec["loaded"],
+                "native_graph": rec["system"].map.obs_graph is not None,
+                "fused_stats": {k: v for k, v in fused_host.pipe_stats(
+                    rec["system"].tracker).items() if not k.endswith("_samples_ms")},
+                "max_ate": max_ate, **(decode_ms(root, paths) if flow == "fused" else {})})
+        check_cli_run(rec, len(images), kernels, max_ate)
+
+    # ---- the A/B sweep: ORB and LoFTR over the same directory ----
+    buf = io.StringIO()
+    _reset_launches()
+    with contextlib.redirect_stdout(buf):
+        results = ab_sweep.main(cli_argv(
+            root, world, cfg, dev, "--matchers", "orb,loftr", "--ate",
+            "--min-ini-matches", str(LOFTR_MIN_INI_MATCHES),
+            "--out-prefix", str(root / "ab")))
+    launches.update(_launches())
+    printed = json.loads(buf.getvalue())["sweep"]
+    _print({"phase": "ab_sweep", "card": card(dev), "launches": _launches(),
+            "arms": [{k: r[k] for k in ("matcher", "frames", "fps", "keyframes", "map_points",
+                                        "lost_frames", "final_state", "ate_rmse", "ate_pairs")}
+                     for r in results]})
+    if [r["matcher"] for r in printed] != ["orb", "loftr"] or any(
+            r["final_state"] != "OK" or r["frames"] != len(images) for r in results):
+        raise AssertionError(f"ab_sweep arms {results}")
+    tmp.cleanup()
+    return dict(launches)
+
+
+@contextlib.contextmanager
+def thread_errors():
+    """Collect every exception that ends a thread (AsyncSlamDriver's worker
+    only lets it reach threading.excepthook); the phase raises after."""
+    errors: list = []
+    real = threading.excepthook
+
+    def hook(args):
+        errors.append("".join(traceback.format_exception(
+            args.exc_type, args.exc_value, args.exc_traceback)))
+
+    threading.excepthook = hook
+    try:
+        yield errors
+    finally:
+        threading.excepthook = real
+
+
+INTERACTIVE_KEYS = ["i"] + ["right"] * 3 + [""] * 25 + ["t"]
+PACED_FRAMES = 40
+PACE_S = 0.032  # the reference's camera period (src/main.cpp:58-59)
+
+
+def paced_drive(dev, cfg: SystemConfig, world, images, flow: str) -> dict:
+    """PACED_FRAMES of `images` fed every PACE_S from this thread through
+    AsyncSlamDriver into a fused System, whose worker (a new thread per
+    accepted frame) tracks with track_monocular or, flow="pipelined",
+    track_monocular_pipelined (flushed after the last frame): frames dropped,
+    the worker's ms and states per frame, the final state."""
+    system = build_system(dev, cfg, world, "fused")
+    system.toggle_initialization_allowed()
+    step = system.track_monocular_pipelined if flow == "pipelined" else system.track_monocular
+    track_ms, worker_states = [], []
+
+    def track(image, timestamp):  # on the worker thread
+        t = time.perf_counter()
+        step(image, timestamp)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        track_ms.append((time.perf_counter() - t) * 1e3)
+        worker_states.append(system.tracker.state.name)
+
+    driver = AsyncSlamDriver(system, track_fn=track)
+    _reset_launches()
+    t0 = time.perf_counter()
+    for i, img in enumerate(images[:PACED_FRAMES]):
+        driver.feed(img, timestamp=i * PACE_S)
+        time.sleep(max(0.0, t0 + (i + 1) * PACE_S - time.perf_counter()))
+    driver.close()
+    if flow == "pipelined":
+        system.flush_pipeline()
+    return {"frames_in": driver.frames_in, "frames_dropped": driver.frames_dropped,
+            "final_state": system.tracker.state.name,
+            "states": "".join(st[0] for st in worker_states),
+            "track_ms": [round(x, 2) for x in track_ms],
+            "keyframes": system.map.n_keyframes(), "wall_s": time.perf_counter() - t0,
+            "launches": _launches()}
+
+
+def interactive_phase(dev, cfg: SystemConfig, world, images) -> dict:
+    """Phase interactive: interactive.main's scripted session (its world and
+    System at cfg's size, no PNG), then `paced_drive` in the fused flow and
+    pipelined. Fails on any exception in a worker thread. Returns the
+    launches."""
+    if dev.type == "cuda" and torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("a sync debug mode was left set by an earlier phase")
+    launches = collections.Counter()
+    with thread_errors() as errors, tempfile.TemporaryDirectory() as d, \
+            recorded_systems() as made:
+        buf = io.StringIO()
+        _reset_launches()
+        with contextlib.redirect_stdout(buf):
+            interactive.main(["--features", str(cfg.max_features), "--width", str(cfg.w),
+                              "--height", str(cfg.h), "--focal", str(cfg.f), "--png", "",
+                              "--keys", ",".join(INTERACTIVE_KEYS), "--out", f"{d}/traj.txt",
+                              "--device", str(dev)])
+        scripted = _last_json(buf.getvalue())
+        scripted["launches"] = _launches()
+        scripted["native_graph"] = made[0].map.obs_graph is not None
+        launches.update(_launches())
+
+        paced = {}
+        for flow in ("fused", "pipelined"):
+            paced[flow] = paced_drive(dev, cfg, world, images, flow)
+            launches.update(paced[flow]["launches"])
+    _print({"phase": "interactive", "card": card(dev), "scripted": scripted, "paced": paced,
+            "thread_errors": errors})
+    if errors:
+        raise AssertionError(f"a worker thread raised:\n{errors[0]}")
+    if (scripted["state"] != "OK" or scripted["keyframes"] < 2 or scripted["dropped"] != 0
+            or scripted["frames"] != len(INTERACTIVE_KEYS) or not scripted["native_graph"]):
+        raise AssertionError(f"scripted interactive session {scripted}")
+    return dict(launches)
+
+
+def quality_bench_phase(dev) -> dict:
+    """Phase quality_bench: the port's quality_bench.run_quality (both arms,
+    the full rect loop) and run_quality_loftr on `dev`. Fails on an error key
+    or an ORB OK share under MIN_OK_SHARE; whether the loop fired and the
+    fork arm's numbers are recorded (ROADMAP C.8: on this world they turn on
+    float noise). Returns the launches."""
+    _reset_launches()
+    t0 = time.perf_counter()
+    orb_arm = quality_bench.run_quality(device=dev, both_arms=True)
+    t1 = time.perf_counter()
+    loftr_arm = quality_bench.run_quality_loftr(device=dev)
+    t2 = time.perf_counter()
+    rec = {"phase": "quality_bench", "card": card(dev), **orb_arm, **loftr_arm,
+           "launches": _launches(),
+           "orb_seconds": t1 - t0, "loftr_seconds": t2 - t1}
+    _print(rec)
+    errors = {k: v for k, v in rec.items() if k.startswith("quality_error")}
+    if errors or orb_arm["quality_frames_ok_share"] < MIN_OK_SHARE:
+        raise AssertionError(f"quality_bench {rec}")
+    return rec["launches"]
+
+
+def pose_checksum(system: System) -> float:
+    """The sum of |Tcw| over the keyframes: equal sums mean the same map."""
+    kfs = sorted(system.map.all_keyframes(), key=lambda kf: kf.id)
+    return float(sum(np.abs(kf.get_pose().astype(np.float64)).sum() for kf in kfs))
+
+
+@contextlib.contextmanager
+def connection_timer():
+    """Time every KeyFrame.update_connections (host ms); yields the list."""
+    real = map_model.KeyFrame.update_connections
+    ms: list = []
+
+    def timed(kf):
+        t0 = time.perf_counter()
+        real(kf)
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    with mock.patch.object(map_model.KeyFrame, "update_connections", timed):
+        yield ms
+
+
+KF_GRAPH_TURNS = (True, False, False, True)  # native graph on / off, in turns
+
+
+def kf_graph_phase(dev, cfg: SystemConfig) -> dict:
+    """Phase kf_graph: the keyframe-event regime (system_fused_kf's drive)
+    with Map(use_native_graph=True) and with the Python scan, in turns:
+    keyframe-event p50 / p95, update_connections ms per call, and whether
+    the drives built the same map (pose checksums). Returns the launches."""
+    world, poses, images = render_system(cfg)
+    turns, launches = [], collections.Counter()
+    for use_native in KF_GRAPH_TURNS:
+        make = lambda: map_model.Map(use_native_graph=use_native)  # noqa: E731
+        with mock.patch.object(system_mod, "Map", make), connection_timer() as uc_ms:
+            run = run_system(dev, cfg, world, poses, images, flow="fused")
+        system = run["system"]
+        if (system.map.obs_graph is not None) != use_native:
+            raise AssertionError("the drive did not run the graph it was given")
+        if run["lost_frames"] or run["first_ok_frame"] is None:
+            raise AssertionError(f"kf_graph drive lost track: {run['states']}")
+        launches.update(run["launches"])
+        turns.append({"native_graph": use_native, "kf_events": run["kf_events"],
+                      "kf_event_p50_ms": run["kf_event_p50_ms"],
+                      "kf_event_p95_ms": run["kf_event_p95_ms"],
+                      "frame_p50_ms": run["frame_p50_ms"],
+                      "update_connections_calls": len(uc_ms),
+                      "update_connections_ms_per_call": float(np.mean(uc_ms)) if uc_ms else None,
+                      "keyframes": run["keyframes"], "map_points": run["map_points"],
+                      "pose_checksum": pose_checksum(system),
+                      "Tcw": run["Tcw"]})
+    native_t = [t for t in turns if t["native_graph"]]
+    python_t = [t for t in turns if not t["native_graph"]]
+    frame_diff = float(np.nanmax(np.abs(native_t[0]["Tcw"] - python_t[0]["Tcw"])))
+    _print({"phase": "kf_graph", "card": card(dev), "size": [cfg.h, cfg.w], "step": cfg.step,
+            "turns": [{k: v for k, v in t.items() if k != "Tcw"} for t in turns],
+            "checksums_equal": len({t["pose_checksum"] for t in turns}) == 1,
+            "frame_pose_max_abs_diff_native_vs_python": frame_diff})
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
@@ -1956,8 +2399,7 @@ def main() -> int:
     # ---- the slice: chained steady steps through both kernels ----
     seed = seed_map(dev, cfg, world, poses, images)
     gt = np.stack(poses[cfg.n_kf:])
-    detect.detect_maps_cuda.launches = 0
-    pose_opt_cuda.pose_lm_batched.launches = 0
+    _reset_launches()
     run = drive(dev, cfg, seed, poses, images)
     n_b1 = detect.detect_maps_cuda.launches
     n_b2 = pose_opt_cuda.pose_lm_batched.launches
@@ -2086,6 +2528,13 @@ def main() -> int:
     loftr_launches = {k: loftr["launches"][k] + quality["launches"][k] for k in ("b1", "b2")}
     b2_loftr = loftr["b2"]
 
+    # ---- the application layer: native runtime, CLI, apps, graph cost ----
+    _print(native_phase(dev))
+    app_launches = collections.Counter(cli_phases(dev, sys_cfg, world_s, poses_s, images_s))
+    app_launches.update(interactive_phase(dev, sys_cfg, world_s, images_s))
+    app_launches.update(quality_bench_phase(dev))
+    app_launches.update(kf_graph_phase(dev, SYSTEM_KF))
+
     b1_stack_bound = b1_bound(dims, stacked=True)
     banded_bound = b1_bound(banded_dims, stacked=False)
     full_bound = b1_bound(full_dims, stacked=False)
@@ -2096,11 +2545,12 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
          "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"] + loop_launches["b1"]
-         + loftr_launches["b1"],
+         + loftr_launches["b1"] + app_launches["b1"],
          "max_abs_err": max(b1["max_abs_err"].values()),
          "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_stack_bound[0],
-         "bound_by": b1_stack_bound[1], "library_ms": None, "design": DESIGN},
+         "bound_by": b1_stack_bound[1], "library_ms": None, "design": DESIGN,
+         "app_launches": app_launches["b1"]},
         {"name": "detect_level (B1-banded: 8 one-level launches, 640x480)", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:215",
@@ -2121,7 +2571,8 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
          "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"] + loop_launches["b2"]
-         + loftr_launches["b2"],
+         + loftr_launches["b2"] + app_launches["b2"],
+         "app_launches": app_launches["b2"],
          "max_abs_err": b2["edges_2000"]["T_max_abs_err"],
          "ms": b2_ms, "wrapper_ms": b2_wrapper_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_b[0],

@@ -229,7 +229,8 @@ def map_from_snapshot(snap: dict, kf_db=None, classes=None):
 
     `classes` = (new_map, Frame, KeyFrame, MapPoint) with the attribute
     layout of the port's `slam/map_model.py` and `slam/frame.py`; default:
-    the port's own."""
+    the port's own. A map with a native observation graph gets every
+    observation in it, and its keyframe registry keyed by the kept ids."""
     if classes is None:
         from mono_slam_framework_torch.slam.frame import Frame
         from mono_slam_framework_torch.slam.map_model import KeyFrame, Map, MapPoint
@@ -262,6 +263,9 @@ def map_from_snapshot(snap: dict, kf_db=None, classes=None):
                 mp.obs_measurements[kf] = tuple(meas)
             if info is not None:
                 mp.obs_info[kf] = info
+        if map_.obs_graph is not None:
+            for kf in mp.observations:
+                map_.obs_graph.add(mp.id, kf.id)
         mps[mp.id] = mp
         if not mp.is_bad:
             map_.add_map_point(mp)
@@ -282,6 +286,8 @@ def map_from_snapshot(snap: dict, kf_db=None, classes=None):
         for c in d["children"]:
             if c in kfs:
                 kf.add_child(kfs[c])
+    map_.kf_registry.clear()
+    map_.kf_registry.update(kfs)
     map_.keyframe_origins.extend(kfs[k] for k in snap["origins"])
     map_.max_kf_id = snap["max_kf_id"]
     map_.big_change_idx = snap["big_change_idx"]

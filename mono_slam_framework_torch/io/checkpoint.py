@@ -10,7 +10,10 @@ PyTorch-port copy of `mono_slam_framework_tpu/io/checkpoint.py` over the
 port's map classes. The .npz layout is the JAX package's, so a file written
 by either package loads in the other. `load_map` reads each array of the
 file once (the JAX copy indexes the NpzFile per row, which decompresses the
-array again on every access).
+array again on every access), and keys the map's keyframe registry by the
+restored ids: the registry is what the native observation graph's answers
+are read through, and the JAX copy leaves it keyed by the ids the
+keyframes had before they were overwritten.
 """
 
 from __future__ import annotations
@@ -109,6 +112,8 @@ def load_map(path: str, map_, kf_db, params) -> None:
         if kf_db is not None:
             kf_db.add(kf)
     KeyFrame.next_id = max(kf_by_id, default=-1) + 1
+    map_.kf_registry.clear()
+    map_.kf_registry.update(kf_by_id)
 
     mps: list[MapPoint] = []
     for r in range(len(data["mp_ids"])):

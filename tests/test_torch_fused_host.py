@@ -52,7 +52,8 @@ JAX = dict(Map=lambda: jmm.Map(use_native_graph=False), Frame=jframe.Frame,
            FrameFactory=jframe.FrameFactory, KeyFrameFactory=jmm.KeyFrameFactory,
            Params=JParams, reset=(jframe.reset_frame_ids, jmm.reset_map_ids),
            feats=lambda d: jorb.Features(**{k: jnp.asarray(v) for k, v in d.items()}))
-PORT = dict(Map=pmm.Map, Frame=pframe.Frame, KeyFrame=pmm.KeyFrame, MapPoint=pmm.MapPoint,
+PORT = dict(Map=lambda: pmm.Map(use_native_graph=False), Frame=pframe.Frame,
+            KeyFrame=pmm.KeyFrame, MapPoint=pmm.MapPoint,
             Tracking=lambda *a, **k: ptr.Tracking(*a, device="cpu", **k),
             FrameFactory=pframe.FrameFactory, KeyFrameFactory=pmm.KeyFrameFactory,
             Params=SlamParameters, reset=(reset_frame_ids, reset_map_ids),

@@ -34,7 +34,9 @@ from mono_slam_framework_torch import convert, sim
 from mono_slam_framework_torch.matchers import OrbFeatureMatcher
 from mono_slam_framework_torch.params import SlamParameters
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System, fused_host
+from mono_slam_framework_torch.slam import frame as pframe
 from mono_slam_framework_torch.slam import loop_closing as plc
+from mono_slam_framework_torch.slam import map_model as pmm
 from mono_slam_framework_torch.slam.frame import reset_frame_ids
 from mono_slam_framework_torch.slam.map_model import reset_map_ids
 from mono_slam_framework_torch.slam.tracking import TrackingState
@@ -43,6 +45,8 @@ CPU = torch.device("cpu")
 MAX_FEATURES = 400  # test_pipeline.build_system's
 JAX_CLASSES = (lambda: jmm.Map(use_native_graph=False), jframe.Frame, jmm.KeyFrame,
                jmm.MapPoint)
+PORT_CLASSES = (lambda: pmm.Map(use_native_graph=False), pframe.Frame, pmm.KeyFrame,
+                pmm.MapPoint)
 
 
 def _system(world, **overrides):
@@ -150,7 +154,8 @@ def drifted():
 def _twins(snap):
     """(port map, keyframes, points), (JAX map, keyframes, points) from one
     snapshot."""
-    return convert.map_from_snapshot(snap), convert.map_from_snapshot(snap, classes=JAX_CLASSES)
+    return (convert.map_from_snapshot(snap, classes=PORT_CLASSES),
+            convert.map_from_snapshot(snap, classes=JAX_CLASSES))
 
 
 def _closers(snap, cur, matched):

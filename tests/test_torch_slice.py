@@ -217,4 +217,8 @@ def test_port_imports_without_jax():
     # relocalization and loop correction
     for m in ("estimation.epnp", "optim.pose_graph", "geometry.sim3", "slam.loop_closing"):
         assert prefix + m in mods, m
+    # the application layer and the native runtime's bindings
+    for m in ("run", "ab_sweep", "interactive", "quality_bench", "io.datasets", "utils.app",
+              "native.frameio"):
+        assert prefix + m in mods, m
     assert len(mods) >= 36 and len(tools) >= 3

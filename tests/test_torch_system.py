@@ -128,7 +128,8 @@ def _side(pkg, snap, feats, images, world):
         db = jkfdb.KeyFrameMatchDatabase
         dev = {}
     else:
-        classes = None
+        classes = (lambda: map_model.Map(use_native_graph=False), frame.Frame,
+                   map_model.KeyFrame, map_model.MapPoint)
         Matcher, Frame, KFF, FF = (OrbFeatureMatcher, frame.Frame, map_model.KeyFrameFactory,
                                    frame.FrameFactory)
         params = _params(SlamParameters, world)

@@ -33,7 +33,8 @@ H, W, F = 120, 160, 125.0
 K_MAT = np.array([[F, 0, W / 2], [0, F, H / 2], [0, 0, 1]], np.float32)
 JAX_CLASSES = (lambda: jmm.Map(use_native_graph=False), jframe.Frame, jmm.KeyFrame,
                jmm.MapPoint)
-PORT_CLASSES = (pmm.Map, pframe.Frame, pmm.KeyFrame, pmm.MapPoint)
+PORT_CLASSES = (lambda: pmm.Map(use_native_graph=False), pframe.Frame, pmm.KeyFrame,
+                pmm.MapPoint)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +132,7 @@ def _port_map():
     rng = np.random.default_rng(11)
     world = sim.PlaneWorld(width=W, height=H, f=F)
     poses = sim.lateral_trajectory(5, step=0.1)
-    map_ = pmm.Map()
+    map_ = pmm.Map(use_native_graph=False)
     kfs = []
     for i, T in enumerate(poses):
         fr = pframe.Frame(world.render(T), 0.1 * i, K_MAT)
@@ -221,7 +222,7 @@ def test_checkpoint_loads_across_packages(snap, tmp_path, writer, reader):
     else:
         jckpt.save_map(path, jmap_src)
     if reader == "port":
-        got = pmm.Map()
+        got = pmm.Map(use_native_graph=False)
         pckpt.load_map(path, got, None, None)
     else:
         got = jmm.Map(use_native_graph=False)
