@@ -119,6 +119,32 @@ line and raises if it fails:
                 with the Python scan, in turns: keyframe-event p50 / p95,
                 update_connections ms per call, and whether the drives built
                 the same map (pose checksums).
+ 24. b1_batch, b2_batch — kernel B1 over 4 streams in one launch (each
+                stream bit-equal to its one-stream launch, all against the
+                plain version) and B2 over 8 steady-shaped problems against
+                its plain version;
+ 25. multistream — parallel/multistream.py's steady_step_batch over 8
+                streams at 640x480, 2000 features, tables of 1024 and 8 local
+                keyframes (bench.py::bench_multistream's regime on seeded
+                maps): 30 timed calls after one warm-up and the same inputs
+                as 8 one-stream steady_step calls per frame, in turns;
+                aggregate and per-stream frames/s, device ops per call; every
+                stream of every call against its one-stream step (rows and
+                n_good equal, T1 / T2 within 1e-4), the batch against its
+                plain kernels; one B1 and two B2 launches per call; the
+                batched launches' bare times at N = 1, 4, 8;
+ 26. server, server_pipelined, server_loftr — parallel/server.py's
+                SlamServer over bench.py::bench_server's regime (4 streams,
+                640x480, steps 0.02 + 0.004 s, 10 warm + 24 timed ticks, ORB
+                at 2000 features; then LoftrFeatureMatcher(threshold=0.1,
+                fine=False) at steps 0.02 + 0.001 s), step and step_pipelined
+                (ORB; every dispatch of the pipelined drive under
+                torch.cuda.set_sync_debug_mode("error")): aggregate
+                frames/s, tick p50 / p95, the batched share, prepare /
+                dispatch / readback / track ms per tick, launches; every
+                stream OK, ATE < 0.15 and within 0.05 of the same stream run
+                as an independent System (LoFTR: 0.2 and 0.06), every
+                batched dispatch consumed.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -165,6 +191,7 @@ from mono_slam_framework_torch.models import loftr_native  # noqa: E402
 from mono_slam_framework_torch.native import frameio  # noqa: E402
 from mono_slam_framework_torch.ops import detect, hamming, orb  # noqa: E402
 from mono_slam_framework_torch.optim import pose_opt, pose_opt_cuda  # noqa: E402
+from mono_slam_framework_torch.parallel import SlamServer, multistream  # noqa: E402
 from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System  # noqa: E402
 from mono_slam_framework_torch.slam import fused_host, fused_loftr, fused_tracking  # noqa: E402
@@ -364,9 +391,11 @@ def pose_errors(T_est: np.ndarray, T_gt: np.ndarray):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the main path through both kernels' plain versions (for the
-    comparison drive on the card)."""
+    comparison drive on the card), the batched launches included."""
     with mock.patch.object(detect, "detect_maps", detect.detect_maps_plain), \
-            mock.patch.object(pose_opt, "pose_optimize", pose_opt.pose_optimize_plain):
+            mock.patch.object(detect, "detect_maps_batch", detect.detect_maps_batch_plain), \
+            mock.patch.object(pose_opt, "pose_optimize", pose_opt.pose_optimize_plain), \
+            mock.patch.object(pose_opt, "pose_optimize_batched", pose_opt.pose_lm_batched_plain):
         yield
 
 
@@ -444,31 +473,36 @@ def _per_launch_ms(fn, n: int = 200, reps: int = 5) -> float:
 
 def b1_bare(stack, dims):
     """A closure that launches B1 through its C entry point (what
-    detect._launch calls) on prepared device inputs and outputs: no checks,
-    no allocation, no count."""
+    detect._launch calls, detect_maps_batch_launch) on prepared device
+    inputs and outputs: no checks, no allocation, no count. `stack` is one
+    [rows, w0] level stack or N streams' [N, rows, w0] (one launch over all
+    of them)."""
     dims = tuple(dims)
+    stacks = stack if stack.dim() == 3 else stack[None]
+    n = stacks.shape[0]
     _, rows, w0 = detect.level_layout(dims)
     (gx, gy), table = detect.tile_plan(dims).grid, detect._device_table(dims, stack.device)
-    out = torch.empty((5, rows, w0), dtype=torch.float32, device=stack.device)
+    out = torch.empty((5, n, rows, w0), dtype=torch.float32, device=stack.device)
     lib = _kernels.load()
-    args = (stack.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, rows, w0,
-            FAST_THRESHOLD, orb.BORDER, _kernels.stream_ptr(stack.device))
-    owners = (stack, table, out)  # kept alive by the closure
-    return lambda: (owners, lib.detect_maps_launch(*args))[1]
+    args = (stacks.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, n, rows,
+            w0, FAST_THRESHOLD, orb.BORDER, _kernels.stream_ptr(stack.device))
+    owners = (stacks, table, out)  # kept alive by the closure
+    return lambda: (owners, lib.detect_maps_batch_launch(*args))[1]
 
 
 def b2_bare(T0, X, uv, valid, K, info, cluster: int = pose_opt_cuda.CLUSTER):
-    """A closure that launches B2 on one prepared problem through its C
-    entry point (what pose_opt_cuda.pose_lm_batched calls): no checks, no
-    allocation, no count."""
+    """A closure that launches B2 through its C entry point (what
+    pose_opt_cuda.pose_lm_batched calls) on one prepared problem, or on B
+    problems with a leading axis B: no checks, no allocation, no count."""
     dev = X.device
-    E = X.shape[0]
+    lead = X.shape[:-2]
+    E = X.shape[-2]
     plan = pose_opt_cuda.lm_plan(E, cluster)
-    t = [X, uv, valid, info, K, T0, torch.empty((4, 4), dtype=torch.float32, device=dev),
-         torch.empty(E, dtype=torch.bool, device=dev),
-         torch.empty((), dtype=torch.int32, device=dev)]
+    t = [X, uv, valid, info, K, T0, torch.empty((*lead, 4, 4), dtype=torch.float32, device=dev),
+         torch.empty((*lead, E), dtype=torch.bool, device=dev),
+         torch.empty(lead, dtype=torch.int32, device=dev)]
     lib = _kernels.load()
-    args = (*(x.data_ptr() for x in t), 1, E, *plan, _kernels.stream_ptr(dev))
+    args = (*(x.data_ptr() for x in t), int(np.prod(lead)), E, *plan, _kernels.stream_ptr(dev))
     return lambda: (t, lib.pose_lm_launch(*args))[1]
 
 
@@ -485,6 +519,12 @@ def check_b1(img: np.ndarray, device):
     got = detect.detect_maps_cuda(stack, dims, FAST_THRESHOLD, orb.BORDER)
     ref = detect.detect_maps_plain(stack, dims, FAST_THRESHOLD, orb.BORDER)
     torch.cuda.synchronize(device)
+    return {"phase": "b1", **b1_against_plain(got, ref, dims)}
+
+
+def b1_against_plain(got, ref, dims) -> dict:
+    """B1's maps of one stack against the plain version's, per level on
+    interior pixels, with check_b1's tolerances; raises past them."""
     got = [m.cpu().numpy() for m in got]
     ref = [m.cpu().numpy() for m in ref]
     tol = {"score": (1e-5, 1e-2), "m10": (1e-4, 2.0), "m01": (1e-4, 2.0),
@@ -512,10 +552,32 @@ def check_b1(img: np.ndarray, device):
         # pad columns: score -inf, the rest 0, in both
         for i in range(5):
             np.testing.assert_array_equal(got[i][r: r + h, w:], ref[i][r: r + h, w:])
-    rec = {"phase": "b1", "score_flips": flips, "interior_px": n_interior,
-           "max_abs_err": max_err}
+    rec = {"score_flips": flips, "interior_px": n_interior, "max_abs_err": max_err}
     if failures or flips > 0.001 * n_interior:
         raise AssertionError(f"B1 differs from its plain version: {failures} {rec}")
+    return rec
+
+
+def check_b1_batch(imgs: np.ndarray, device) -> dict:
+    """Kernel B1 over N streams in one launch: each stream's maps equal the
+    one-stream launch's bit for bit (the same kernel, the stream on
+    blockIdx.z), and are held against the plain version with check_b1's
+    tolerances."""
+    dims = orb._level_dims(*imgs.shape[1:])
+    stacks = torch.stack([orb.pyramid(torch.from_numpy(img).to(device)) for img in imgs])
+    got = detect.detect_maps_batch_cuda(stacks, dims, FAST_THRESHOLD, orb.BORDER)
+    ref = detect.detect_maps_batch_plain(stacks, dims, FAST_THRESHOLD, orb.BORDER)
+    one = [detect.detect_maps_cuda(stacks[i].contiguous(), dims, FAST_THRESHOLD, orb.BORDER)
+           for i in range(len(imgs))]
+    torch.cuda.synchronize(device)
+    equal = all(torch.equal(a[i], b) for i, maps in enumerate(one) for a, b in zip(got, maps))
+    per = [b1_against_plain([m[i] for m in got], [m[i] for m in ref], dims)
+           for i in range(len(imgs))]
+    rec = {"phase": "b1_batch", "streams": len(imgs), "equal_to_one_stream_launches": equal,
+           "score_flips": sum(r["score_flips"] for r in per),
+           "max_abs_err": {k: max(r["max_abs_err"][k] for r in per) for k in per[0]["max_abs_err"]}}
+    if not equal:
+        raise AssertionError(f"the batched B1 launch differs from one-stream launches: {rec}")
     return rec
 
 
@@ -567,6 +629,21 @@ def check_b2(device):
             **compare_b2([x[0] for x in got], ref, f"50,000 slots, cluster {c}"),
             "device_memory_slots_per_cta": plan.slice - plan.resident}
     return rec
+
+
+def b2_batch_problems_steady(n: int):
+    """n steady-shaped pose problems of 2000 slots (steady_problem with seeds
+    5 ..), stacked [n, ...] (numpy): the multi-stream step's LM batch."""
+    return [np.stack(xs) for xs in zip(*(steady_problem(seed=5 + 2 * i) for i in range(n)))]
+
+
+def check_b2_batch(device, n: int) -> dict:
+    """Kernel B2 over B = n steady-shaped problems in one launch against its
+    plain version (compare_b2's bounds)."""
+    args = [torch.from_numpy(a).to(device) for a in b2_batch_problems_steady(n)]
+    rec = compare_b2(pose_opt_cuda.pose_lm_batched(*args), pose_opt.pose_lm_batched_plain(*args),
+                     f"batch of {n} steady problems")
+    return {"phase": "b2_batch", "problems": n, **rec}
 
 
 def b2_cluster_sweep(device):
@@ -731,21 +808,23 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def b1_bound(dims, stacked: bool):
+def b1_bound(dims, stacked: bool, n_streams: int = 1):
     """B1's bound over levels `dims`: one stacked launch reads the
     [rows, w0] stack and writes 5 maps of it; one-level launches read and
-    write each level at its own size. Operations count real pixels."""
-    px = sum(h * w for h, w in dims)
+    write each level at its own size. Operations count real pixels. The
+    batched launch does this for each of n_streams stacks."""
+    px = n_streams * sum(h * w for h, w in dims)
     _, rows, w0 = detect.level_layout(tuple(dims))
-    n_bytes = 4 * 6 * (rows * w0 if stacked else px)
+    n_bytes = 4 * 6 * (n_streams * rows * w0 if stacked else px)
     return bound_ms(n_bytes, B1_OPS_PER_PIXEL * px)
 
 
-def b2_bound(n_slots: int, n_valid: int):
+def b2_bound(n_slots: int, n_valid: int, n_problems: int = 1):
     """B2's bound for one problem: inputs Xw, uv, info (6 f32 per slot),
     valid (1 byte per slot), T_init and K; outputs T, one inlier byte per
-    slot and n_good. Operations count the valid edges' passes."""
-    n_bytes = 25 * n_slots + 4 * (16 + 9) + n_slots + 4 * (16 + 1)
+    slot and n_good. Operations count the valid edges' passes. For a batch,
+    n_valid is the valid edges of all n_problems together."""
+    n_bytes = n_problems * (25 * n_slots + 4 * (16 + 9) + n_slots + 4 * (16 + 1))
     return bound_ms(n_bytes, B2_OPS_PER_EDGE_PASS * B2_EDGE_PASSES * n_valid)
 
 
@@ -865,12 +944,18 @@ def _pct(xs, q):
 
 def _reset_launches() -> None:
     detect.detect_maps_cuda.launches = 0
+    detect.detect_maps_batch_cuda.launches = 0
     pose_opt_cuda.pose_lm_batched.launches = 0
 
 
 def _launches() -> dict:
     return {"b1": detect.detect_maps_cuda.launches,
             "b2": pose_opt_cuda.pose_lm_batched.launches}
+
+
+def _serving_launches() -> dict:
+    """_launches() and B1's batched launches (N streams each)."""
+    return {**_launches(), "b1_batch": detect.detect_maps_batch_cuda.launches}
 
 
 PATHS = ("done_steady", "done_two_program", "done_host")
@@ -2364,6 +2449,419 @@ def kf_graph_phase(dev, cfg: SystemConfig) -> dict:
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# multi-stream serving: the batched steady step and SlamServer
+
+
+MULTI_STREAMS = 8  # bench.py::bench_multistream: 8 streams at 640x480, 2000 features
+MULTI_TIMED = 30  # timed calls after one warm-up call
+MULTI_OFFSET = 4  # stream s starts s * MULTI_OFFSET poses along one trajectory
+MULTI_PLAIN_FRAMES = 5  # calls of the batch through the plain versions
+MULTI_PROFILE_CALLS = 3
+BATCH_SIZES = (1, 4, 8)  # streams / problems of the batched launches' bare times
+MAX_MULTI_POSE_DIFF = 1e-4  # batched vs one-stream steady_step, T1 and T2
+# bench.py::bench_server: 4 streams on PERF.md's world at steps 0.02 + 0.004 s
+SERVER_STREAMS = 4
+SERVER_WARM = 10
+SERVER_TIMED = 24
+SERVER_LOFTR_TIMED = 24
+# LoFTR streams step by 0.001 (0.020 - 0.023): at bench_server's widest step,
+# 0.032, the LoFTR System does not initialize on this world (server_loftr
+# records it as bench_widest_step; ROADMAP C.15)
+SERVER_LOFTR_STEP = 0.001
+MAX_SERVER_ATE = 0.15  # tests/test_server.py:109
+MAX_SERVER_PAIR_ATE = 0.05  # tests/test_server.py:114
+# LoFTR streams: test_server.py's LoFTR case bounds the ATE at 0.2 (:234) and
+# has no pair; the pair is held to the LoFTR System's (MAX_LOFTR_PAIR_ATE)
+MAX_SERVER_LOFTR_ATE = 0.2
+
+
+def multistream_setup(dev, cfg: Config = FULL, n_streams: int = MULTI_STREAMS,
+                      n_calls: int = MULTI_TIMED + 1) -> dict:
+    """N streams of the slice's regime (cfg's size, features, keyframes and
+    table capacities), stream s on poses s * MULTI_OFFSET .. of one lateral
+    trajectory, each with its map seeded from the simulator (seed_map).
+    Returns the streams' images per call [n_calls] x [N, H, W] on the
+    device, the stacked tables and the chain's start (the last keyframe)."""
+    n_pose = cfg.n_kf + n_calls
+    world, poses, images = render(cfg._replace(n_frames=n_calls + (n_streams - 1) * MULTI_OFFSET))
+    seeds, starts = [], []
+    for s in range(n_streams):
+        sl = slice(s * MULTI_OFFSET, s * MULTI_OFFSET + n_pose)
+        seed = seed_map(dev, cfg, world, poses[sl], images[sl])
+        seeds.append(seed)
+        starts.append(poses[sl])
+    last = cfg.n_kf - 1
+    st = lambda xs: torch.stack(list(xs))  # noqa: E731
+    feats = lambda fs: orb.Features(*(st(x) for x in zip(*fs)))  # noqa: E731
+    frames = [torch.from_numpy(np.stack([images[s * MULTI_OFFSET + cfg.n_kf + t]
+                                         for s in range(n_streams)])).to(dev)
+              for t in range(n_calls)]
+    return {
+        "cfg": cfg, "n": n_streams, "frames": frames,
+        "gt": np.stack([np.stack(p[cfg.n_kf:]) for p in starts], 1),  # [calls, N, 4, 4]
+        "tables": (st(x.mp_pos for x in seeds), feats(x.kf_feats for x in seeds),
+                   st(x.kf_px for x in seeds), st(x.kf_row for x in seeds),
+                   st(x.first_slot for x in seeds), st(x.normal for x in seeds),
+                   st(x.maxdist for x in seeds), st(x.K for x in seeds)),
+        "start": (feats(x.feats[last] for x in seeds), st(x.kf_px[last] for x in seeds),
+                  st(x.kf_row[last] for x in seeds),
+                  torch.from_numpy(np.stack([p[last] for p in starts])).to(dev),
+                  torch.from_numpy(np.stack([p[last - 1] for p in starts])).to(dev)),
+    }
+
+
+def multistream_drive(ms: dict, n_calls: int) -> list:
+    """n_calls chained multistream.steady_step_batch calls over all N
+    streams (each stream chained as `drive` chains one). Returns the
+    SteadyOuts."""
+    cfg = ms["cfg"]
+    mp_pos, kf_feats, kf_px, kf_row, first_slot, normal, maxdist, K = ms["tables"]
+    prev_feats, prev_px, prev_row, T_prev, T_prev2 = ms["start"]
+    outs = []
+    for t in range(n_calls):
+        out = multistream.steady_step_batch(
+            ms["frames"][t], prev_feats, prev_px, prev_row, mp_pos,
+            fused_tracking.chain_T_init(T_prev, T_prev2), kf_feats, kf_px, kf_row, first_slot,
+            normal, maxdist, K, RATIO, cfg.w, float(cfg.w), float(cfg.h), True,
+            cfg.max_features, FAST_THRESHOLD,
+        )
+        prev_feats, prev_px, prev_row = out.cur, out.chain_px, out.union_row
+        T_prev2, T_prev = T_prev, out.local.T2
+        outs.append(out)
+    return outs
+
+
+def single_stream_drives(ms: dict, n_calls: int) -> list:
+    """The same chains as multistream_drive, one fused_tracking.steady_step
+    call per stream and frame. Returns [calls][streams] SteadyOuts."""
+    cfg = ms["cfg"]
+    tables = ms["tables"]
+    start = ms["start"]
+    chains = [[orb.Features(*(x[s] for x in start[0]))] + [x[s] for x in start[1:]]
+              for s in range(ms["n"])]
+    outs = []
+    for t in range(n_calls):
+        row = []
+        for s, ch in enumerate(chains):
+            prev_feats, prev_px, prev_row, T_prev, T_prev2 = ch
+            mp_pos, kf_feats, kf_px, kf_row, first_slot, normal, maxdist, K = (
+                orb.Features(*(f[s] for f in x)) if isinstance(x, orb.Features) else x[s]
+                for x in tables)
+            out = fused_tracking.steady_step(
+                ms["frames"][t][s], prev_feats, prev_px, prev_row, mp_pos,
+                fused_tracking.chain_T_init(T_prev, T_prev2), kf_feats, kf_px, kf_row,
+                first_slot, normal, maxdist, K, RATIO, cfg.w, float(cfg.w), float(cfg.h), True,
+                cfg.max_features, FAST_THRESHOLD,
+            )
+            ch[:] = [out.cur, out.chain_px, out.union_row, out.local.T2, T_prev]
+            row.append(out)
+        outs.append(row)
+    return outs
+
+
+def compare_streams(batched: list, singles: list) -> dict:
+    """Each stream of each batched call against its one-stream step: the
+    association rows, the chain and the inlier counts equal, T1 and T2
+    within MAX_MULTI_POSE_DIFF."""
+    rows_equal, pose = True, 0.0
+    for out, row in zip(batched, singles):
+        for s, one in enumerate(row):
+            for a, b in ((out.motion.row, one.motion.row), (out.local.new_row, one.local.new_row),
+                         (out.union_row, one.union_row), (out.chain_px, one.chain_px),
+                         (out.motion.n_good, one.motion.n_good),
+                         (out.local.n_good, one.local.n_good), (out.local.vis, one.local.vis)):
+                rows_equal &= bool(torch.equal(a[s], b.to(a.dtype)))
+            for a, b in ((out.motion.T1, one.motion.T1), (out.local.T2, one.local.T2)):
+                pose = max(pose, float((a[s] - b).abs().max()))
+    return {"rows_and_n_good_equal": rows_equal, "pose_max_abs_diff": pose}
+
+
+def device_ops(fn, n: int) -> float:
+    """Device operations (kernels and copies) per call of fn, from
+    torch.profiler over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()) / n
+
+
+def multistream_phase(dev) -> dict:
+    """Phase multistream (bench.py::bench_multistream's regime on the slice's
+    seeded maps): N = 8 streams at 640x480, 2000 features, tables of 1024,
+    8 local keyframes; 30 timed batched calls after one warm-up, and the
+    same inputs as 8 one-stream steady_step calls per frame, in turns
+    (batched, one-stream, one-stream, batched). Every stream of every call
+    is held against its one-stream step, the batch against its plain
+    kernels over MULTI_PLAIN_FRAMES calls, and the launches per call are
+    counted (B1 once, B2 twice). Returns the record with the batched
+    launches' bare times."""
+    ms = multistream_setup(dev)
+    cfg, n, calls = ms["cfg"], ms["n"], MULTI_TIMED + 1
+    sync = lambda: torch.cuda.synchronize(dev)  # noqa: E731
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    multistream_drive(ms, 1)  # warm-up
+    single_stream_drives(ms, 1)
+    _reset_launches()
+    batched, ms_b1 = timed(lambda: multistream_drive(ms, calls))
+    launches = _serving_launches()
+    singles, ms_s1 = timed(lambda: single_stream_drives(ms, calls))
+    _, ms_s2 = timed(lambda: single_stream_drives(ms, calls))
+    _, ms_b2 = timed(lambda: multistream_drive(ms, calls))
+    agree = compare_streams(batched, singles)
+    with plain_kernels():
+        plain = multistream_drive(ms, MULTI_PLAIN_FRAMES)
+    plain_pose = max(float((a.local.T2 - b.local.T2).abs().max())
+                     for a, b in zip(batched, plain))
+    plain_rows = float(np.mean([float((a.union_row == b.union_row).float().mean())
+                                for a, b in zip(batched, plain)]))
+    T2 = torch.stack([o.local.T2 for o in batched]).cpu().numpy()
+    c_err, r_err = pose_errors(T2.reshape(-1, 4, 4), ms["gt"][:calls].reshape(-1, 4, 4))
+    ops_batched = device_ops(lambda: multistream_drive(ms, 1), MULTI_PROFILE_CALLS)
+    ops_single = device_ops(lambda: single_stream_drives(ms, 1), MULTI_PROFILE_CALLS)
+
+    # the batched launches alone: B1 over N streams' stacks, B2 over B problems
+    dims = orb._level_dims(cfg.h, cfg.w)
+    stacks = torch.stack([orb.pyramid(img) for img in ms["frames"][0]])
+    b1_ms = {k: _per_launch_ms(b1_bare(stacks[:k].contiguous(), dims)) for k in BATCH_SIZES}
+    b1_bounds = {k: b1_bound(dims, stacked=True, n_streams=k) for k in BATCH_SIZES}
+    b2_ms, b2_bounds = {}, {}
+    for k in BATCH_SIZES:
+        prob = b2_batch_problems_steady(k)
+        args = [torch.from_numpy(a).to(dev) for a in prob]
+        b2_ms[k] = _per_launch_ms(b2_bare(*args))
+        b2_bounds[k] = b2_bound(prob[1].shape[1], int(prob[3].sum()), k)
+    per_call = [ms_b1 / calls, ms_b2 / calls]
+    per_single = [ms_s1 / calls, ms_s2 / calls]
+    rec = {
+        "phase": "multistream", "card": card(dev), "streams": n, "size": [cfg.h, cfg.w],
+        "max_features": cfg.max_features, "cap": cfg.cap, "local_keyframes": cfg.n_kf,
+        "timed_calls": calls, "ms_per_call": per_call,
+        "aggregate_fps": [n * 1e3 / x for x in per_call],
+        "per_stream_fps": [1e3 / x for x in per_call],
+        "single_ms_per_frame_of_8": per_single,
+        "single_aggregate_fps": [n * 1e3 / x for x in per_single],
+        "launches": launches, "b1_batch_per_call": launches["b1_batch"] / calls,
+        "b2_per_call": launches["b2"] / calls,
+        "device_ops_per_call": ops_batched, "device_ops_per_8_single_steps": ops_single,
+        **agree, "plain_frames": MULTI_PLAIN_FRAMES, "plain_pose_max_abs_diff": plain_pose,
+        "plain_union_row_agreement": plain_rows,
+        "max_center_err_m": float(c_err.max()), "max_rot_err_deg": float(r_err.max()),
+        "b1_batch_bare_ms": b1_ms, "b1_batch_bound_ms": {k: v[0] for k, v in b1_bounds.items()},
+        "b2_batch_bare_ms": b2_ms, "b2_batch_bound_ms": {k: v[0] for k, v in b2_bounds.items()},
+        "b2_batch_bound_by": {k: v[1] for k, v in b2_bounds.items()},
+    }
+    _print(rec)
+    if launches != {"b1": 0, "b1_batch": calls, "b2": 2 * calls}:
+        raise AssertionError(f"multistream launches {launches} over {calls} calls")
+    if not agree["rows_and_n_good_equal"] or agree["pose_max_abs_diff"] > MAX_MULTI_POSE_DIFF:
+        raise AssertionError(f"batched streams differ from one-stream steps: {agree}")
+    if not plain_pose <= 1e-3:
+        raise AssertionError(f"the batch and its plain kernels differ by {plain_pose}")
+    if c_err.max() > MAX_CENTER_ERR or r_err.max() > MAX_ROT_ERR_DEG:
+        raise AssertionError(f"multistream pose error {c_err.max()} m, {r_err.max()} deg")
+    return rec
+
+
+def render_server(n_streams: int, n_frames: int, step: float = 0.004):
+    """bench.py::bench_server's frames: PERF.md's world at 640x480, stream s
+    on a lateral trajectory with step 0.02 + step * s."""
+    world = sim.PlaneWorld(width=640, height=480, f=500.0, second_plane=(3.0, 0.3))
+    trajs = [sim.lateral_trajectory(n_frames, step=0.02 + step * s) for s in range(n_streams)]
+    return world, trajs, [[world.render(T) for T in traj] for traj in trajs]
+
+
+def server_params(world, matcher: str) -> SlamParameters:
+    """bench_server's parameters: the fused one-step defaults, 2000 features;
+    LoFTR with minIniMatchCount 60."""
+    return SlamParameters(
+        fx=world.f, fy=world.f, cx=world.cx, cy=world.cy, max_features=2000,
+        minIniMatchCount=LOFTR_MIN_INI_MATCHES if matcher == "loftr" else 100,
+        initializerModelFallback=True, fusedTracking=True, fusedOneStep=True,
+    )
+
+
+def server_matcher(dev, matcher: str):
+    if matcher == "loftr":
+        return LoftrFeatureMatcher(threshold=LOFTR_THRESHOLD, fine=False, device=dev)
+    return OrbFeatureMatcher(threshold=RATIO, max_features=2000, device=dev)
+
+
+@contextlib.contextmanager
+def sync_free_server_dispatch(server):
+    """Run every SlamServer._prepare_and_dispatch of `server` under
+    torch.cuda.set_sync_debug_mode("error"); counts the calls checked."""
+    real = server._prepare_and_dispatch
+    checked = {"dispatches": 0}
+
+    def dispatch(images):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(images)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked["dispatches"] += 1
+
+    server._prepare_and_dispatch = dispatch
+    try:
+        yield checked
+    finally:
+        server._prepare_and_dispatch = real
+
+
+def stream_ate(system: System, traj) -> tuple:
+    """(ATE of a System's per-frame trajectory against ground truth, frames)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/t.txt"
+        system.save_trajectory_tum(path)
+        t, p, _ = trajectory.read_tum(path)
+    gt_t = np.arange(len(traj)) * 0.1
+    gt_p = np.stack([-(T[:3, :3].T @ T[:3, 3]) for T in traj])
+    return trajectory.ate_rmse(t, p, gt_t, gt_p)
+
+
+def run_server(dev, world, trajs, frames, matcher: str, pipelined: bool, n_timed: int) -> dict:
+    """bench_server's drive through the port's SlamServer: SERVER_WARM warm
+    ticks, then n_timed timed ticks (host wall per tick; the pipelined
+    drive's timed window ends after flush and a synchronization). Returns
+    the record and the server."""
+    reset_frame_ids()
+    reset_map_ids()
+    server = SlamServer(server_params(world, matcher), lambda: server_matcher(dev, matcher),
+                        len(frames), device=dev)
+    for system in server.systems:
+        system.toggle_initialization_allowed()
+    tick = server.step_pipelined if pipelined else server.step
+    cuda = dev.type == "cuda"
+    checker = sync_free_server_dispatch(server) if pipelined and cuda else \
+        contextlib.nullcontext({"dispatches": None})
+    n = SERVER_WARM + n_timed
+    _reset_launches()
+    with checker as checked:
+        for i in range(SERVER_WARM):
+            tick([f[i] for f in frames], timestamps=i * 0.1)
+        for k in list(server.stats):
+            if k.endswith("_samples_ms"):
+                server.stats[k] = []
+        before = dict(server.stats)
+        tick_ms = []
+        t0 = time.perf_counter()
+        for i in range(SERVER_WARM, n):
+            f0 = time.perf_counter()
+            tick([f[i] for f in frames], timestamps=i * 0.1)
+            tick_ms.append((time.perf_counter() - f0) * 1e3)
+        if pipelined:
+            server.flush()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    st = server.stats
+    served = st["frames"] - before["frames"]
+    batched = st["batched_frames"] - before["batched_frames"]
+    hits = sum(fused_host.pipe_stats(s.tracker).get("hit", 0) for s in server.systems)
+    stages = ("prepare", "dispatch", "readback", "track")
+    per_tick = {k: sum(st.get(f"{k}_samples_ms", [])) / n_timed for k in stages}
+    # a stage's p50 over its calls (readback: one per batched group)
+    p50 = {k: _pct(st.get(f"{k}_samples_ms", []), 50) for k in stages}
+    rec = {
+        "matcher": matcher, "streams": len(frames), "size": [world.h, world.w],
+        "warm_ticks": SERVER_WARM, "timed_ticks": n_timed, "pipelined": pipelined,
+        "aggregate_fps": served / wall, "tick_p50_ms": _pct(tick_ms, 50),
+        "tick_p95_ms": _pct(tick_ms, 95), "batched_share": batched / max(served, 1),
+        "ms_per_tick": per_tick, "stage_p50_ms": p50,
+        "stats": {k: v for k, v in st.items() if not k.endswith("_samples_ms")},
+        "hits": hits, "launches": _serving_launches(),
+        "states": [s.tracker.state.name for s in server.systems],
+        "ate": [stream_ate(s, traj)[0] for s, traj in zip(server.systems, trajs)],
+        "sync_free_dispatches": checked["dispatches"],
+    }
+    return rec, server
+
+
+def independent_systems(dev, world, frames, matcher: str) -> list:
+    """The server's streams run as independent port Systems (fused flow,
+    the server's parameters and matcher, rng_seed s) on the same frames."""
+    systems = []
+    for s, fr in enumerate(frames):
+        reset_frame_ids()
+        reset_map_ids()
+        m = server_matcher(dev, matcher)
+        system = System(server_params(world, matcher), m, KeyFrameMatchDatabase(m),
+                        verbose=False, rng_seed=s, device=dev)
+        system.toggle_initialization_allowed()
+        for i, img in enumerate(fr):
+            system.track_monocular(img, timestamp=i * 0.1)
+        systems.append(system)
+    return systems
+
+
+def check_server_run(rec: dict, server, refs: list, trajs) -> None:
+    """tests/test_server.py's bounds: every stream OK, ATE < 0.15 against
+    ground truth (LoFTR: < 0.2), trajectory pair < 0.05 against the
+    independent System (LoFTR: MAX_LOFTR_PAIR_ATE); batched dispatches served
+    and every one consumed. Prints the record."""
+    loftr = rec["matcher"] == "loftr"
+    max_ate = MAX_SERVER_LOFTR_ATE if loftr else MAX_SERVER_ATE
+    max_pair = MAX_LOFTR_PAIR_ATE if loftr else MAX_SERVER_PAIR_ATE
+    pairs = [trajectory_pair(s, r) for s, r in zip(server.systems, refs)]
+    rec["pair_ate_vs_independent"] = [p for p, _ in pairs]
+    rec["pair_frames"] = [k for _, k in pairs]
+    rec["independent_ate"] = [stream_ate(r, t)[0] for r, t in zip(refs, trajs)]
+    _print(rec)
+    if any(st != "OK" for st in rec["states"]):
+        raise AssertionError(f"server streams not OK: {rec['states']}")
+    if not all(a < max_ate for a in rec["ate"]):
+        raise AssertionError(f"server stream ATE {rec['ate']}")
+    if not all(p < max_pair and k >= 8 for p, k in pairs):
+        raise AssertionError(f"server streams vs independent Systems: {pairs}")
+    if rec["stats"]["batch_groups"] < 3 or rec["hits"] < rec["stats"]["batched_frames"]:
+        raise AssertionError(f"batched dispatch: {rec['stats']}, hits {rec['hits']}")
+    groups, launches = rec["stats"]["batch_groups"], rec["launches"]
+    # one B1 launch per ORB group (none for LoFTR), two B2 launches per group
+    # beside the streams' own launches
+    b1_want = 0 if loftr else groups
+    if launches["b1_batch"] != b1_want or launches["b2"] < 2 * groups:
+        raise AssertionError(f"server launches {launches} for {groups} batched groups")
+
+
+def server_phases(dev) -> dict:
+    """Phases server, server_pipelined and server_loftr (see the module
+    docstring). Returns their launches."""
+    world, trajs, frames = render_server(SERVER_STREAMS, SERVER_WARM + SERVER_TIMED)
+    launches = collections.Counter()
+    refs = independent_systems(dev, world, frames, "orb")
+    for phase, pipelined in (("server", False), ("server_pipelined", True)):
+        rec, server = run_server(dev, world, trajs, frames, "orb", pipelined, SERVER_TIMED)
+        check_server_run({"phase": phase, "card": card(dev), **rec}, server, refs, trajs)
+        if pipelined and rec["sync_free_dispatches"] < 1:
+            raise AssertionError("no server dispatch ran under the sync debug mode")
+        launches.update(rec["launches"])
+    world, trajs_l, frames_l = render_server(SERVER_STREAMS, SERVER_WARM + SERVER_LOFTR_TIMED,
+                                            SERVER_LOFTR_STEP)
+    refs = independent_systems(dev, world, frames_l, "loftr")
+    rec, server = run_server(dev, world, trajs_l, frames_l, "loftr", False, SERVER_LOFTR_TIMED)
+    # bench_server's widest LoFTR step, as one System: recorded, not held
+    wide = sim.lateral_trajectory(SERVER_WARM + SERVER_LOFTR_TIMED,
+                                  step=0.02 + 0.004 * (SERVER_STREAMS - 1))
+    sys_w = independent_systems(dev, world, [[world.render(T) for T in wide]], "loftr")[0]
+    rec["bench_widest_step"] = {"step": 0.02 + 0.004 * (SERVER_STREAMS - 1),
+                                "final_state": sys_w.tracker.state.name,
+                                "keyframes": sys_w.map.n_keyframes()}
+    check_server_run({"phase": "server_loftr", "card": card(dev), **rec}, server, refs, trajs_l)
+    launches.update(rec["launches"])
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
@@ -2535,6 +3033,16 @@ def main() -> int:
     app_launches.update(quality_bench_phase(dev))
     app_launches.update(kf_graph_phase(dev, SYSTEM_KF))
 
+    # ---- multi-stream serving: the batched steady step and SlamServer ----
+    b1_batch = check_b1_batch(np.stack(images[:4]), dev)
+    _print(b1_batch)
+    b2_batch = check_b2_batch(dev, MULTI_STREAMS)
+    _print(b2_batch)
+    multi = multistream_phase(dev)
+    serve_launches = server_phases(dev)
+    batch_b1 = multi["launches"]["b1_batch"] + serve_launches["b1_batch"]
+    batch_b2 = multi["launches"]["b2"] + serve_launches["b2"]
+
     b1_stack_bound = b1_bound(dims, stacked=True)
     banded_bound = b1_bound(banded_dims, stacked=False)
     full_bound = b1_bound(full_dims, stacked=False)
@@ -2545,12 +3053,18 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
          "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"] + loop_launches["b1"]
-         + loftr_launches["b1"] + app_launches["b1"],
+         + loftr_launches["b1"] + app_launches["b1"] + serve_launches["b1"] + batch_b1,
          "max_abs_err": max(b1["max_abs_err"].values()),
          "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_stack_bound[0],
          "bound_by": b1_stack_bound[1], "library_ms": None, "design": DESIGN,
-         "app_launches": app_launches["b1"]},
+         "app_launches": app_launches["b1"],
+         "batch_launches": batch_b1, "multistream_batch_launches": multi["launches"]["b1_batch"],
+         "server_batch_launches": serve_launches["b1_batch"],
+         "server_one_stream_launches": serve_launches["b1"],
+         "batch_streams_ms": multi["b1_batch_bare_ms"],
+         "batch_streams_bound_ms": multi["b1_batch_bound_ms"],
+         "batch_max_abs_err": max(b1_batch["max_abs_err"].values())},
         {"name": "detect_level (B1-banded: 8 one-level launches, 640x480)", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:215",
@@ -2571,8 +3085,12 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
          "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"] + loop_launches["b2"]
-         + loftr_launches["b2"] + app_launches["b2"],
+         + loftr_launches["b2"] + app_launches["b2"] + batch_b2,
          "app_launches": app_launches["b2"],
+         "multistream_launches": multi["launches"]["b2"], "server_launches": serve_launches["b2"],
+         "batch_problems_ms": multi["b2_batch_bare_ms"],
+         "batch_problems_bound_ms": multi["b2_batch_bound_ms"],
+         "batch_max_abs_err": b2_batch["T_max_abs_err"],
          "max_abs_err": b2["edges_2000"]["T_max_abs_err"],
          "ms": b2_ms, "wrapper_ms": b2_wrapper_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_b[0],

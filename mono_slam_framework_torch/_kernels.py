@@ -37,6 +37,9 @@ _SIGNATURES = {
     # (img, out5, table, n_levels, grid_x, grid_y, rows, w0, threshold,
     #  border, stream)
     "detect_maps_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # (img, out5, table, n_levels, grid_x, grid_y, n_streams, rows, w0,
+    #  threshold, border, stream)
+    "detect_maps_batch_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # (xw, uv, valid, info, K, t_init, t_out, inlier, n_good, B, E, cluster,
     #  slice, resident, smem, stream)
     "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -18,7 +18,12 @@
 //
 // Layout: level l occupies rows row0[l] .. row0[l]+h[l] of a [rows, w0] f32
 // stack; the table holds (row0, h, w, first tile row) per level
-// (ops/detect.py::tile_plan).
+// (ops/detect.py::tile_plan). N streams' stacks [N, rows, w0] run in one
+// launch (the counterpart of detect_stage_multi_bands(..., n_streams=N)):
+// blockIdx.z is the stream, every stream reads the same one-stream level
+// table, and the output is [5, N, rows, w0], so each map of all N streams
+// is one contiguous [N, rows, w0] block (ops/orb.py reads it per stream
+// with a stream offset, without a copy). N = 1 is the one-stream launch.
 //
 // What bounds it on the card: shared-memory traffic per tile, not device
 // memory (the launch moves ~34 MB at 640x480, 10 us at 3.35 TB/s). Summing
@@ -113,9 +118,12 @@ __device__ __forceinline__ bool any_arc9(unsigned m) {
 
 __global__ void __launch_bounds__(NT, 3)
 detect_kernel(const float* __restrict__ img, float* __restrict__ out,
-              const int4* __restrict__ levels, int n_levels, size_t plane, int w0,
-              float thr, int border) {
+              const int4* __restrict__ levels, int n_levels, size_t plane, size_t stack,
+              int w0, float thr, int border) {
   extern __shared__ __align__(16) float sm[];
+  // this block's stream: its stack in the input, its rows in each map
+  img += static_cast<size_t>(blockIdx.z) * stack;
+  out += static_cast<size_t>(blockIdx.z) * stack;
   float* s_img = sm;
   float* reg_a = sm + IMG_BYTES / 4;
   float* reg_b = reg_a + A_BYTES / 4;
@@ -129,6 +137,7 @@ detect_kernel(const float* __restrict__ img, float* __restrict__ out,
   const int x0 = static_cast<int>(blockIdx.x) * TW;
   const int tid = threadIdx.x;
 
+  // plane: the distance between two maps of the output (N stacks)
   float* o_score = out;
   float* o_m10 = out + plane;
   float* o_m01 = out + 2 * plane;
@@ -420,20 +429,32 @@ detect_kernel(const float* __restrict__ img, float* __restrict__ out,
 
 }  // namespace
 
-// img [rows, w0] f32 level stack; out [5, rows, w0] f32 (score, m10, m01,
-// blur, harris); table [n_levels] x (row0, h, w, first tile row) int32 on
-// the device; grid_x x grid_y tiles of 32 x 64 (ops/detect.py::tile_plan).
-// Returns the launch's error code.
-extern "C" int detect_maps_launch(const float* img, float* out, const int* table,
-                                  int n_levels, int grid_x, int grid_y, int rows, int w0,
-                                  float threshold, int border, void* stream) {
+// img [n_streams, rows, w0] f32 level stacks; out [5, n_streams, rows, w0]
+// f32 (score, m10, m01, blur, harris); table [n_levels] x (row0, h, w, first
+// tile row) int32 on the device, one stream's; grid_x x grid_y tiles of
+// 32 x 64 per stream (ops/detect.py::tile_plan). Returns the launch's error
+// code.
+extern "C" int detect_maps_batch_launch(const float* img, float* out, const int* table,
+                                        int n_levels, int grid_x, int grid_y, int n_streams,
+                                        int rows, int w0, float threshold, int border,
+                                        void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (n_levels > 0 && grid_x > 0 && grid_y > 0) {
-    detect_kernel<<<dim3(grid_x, grid_y), NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-        img, out, reinterpret_cast<const int4*>(table), n_levels,
-        static_cast<size_t>(rows) * w0, w0, threshold, border);
+  if (n_levels > 0 && grid_x > 0 && grid_y > 0 && n_streams > 0) {
+    const size_t stack = static_cast<size_t>(rows) * w0;
+    detect_kernel<<<dim3(grid_x, grid_y, n_streams), NT, SMEM_BYTES,
+                    static_cast<cudaStream_t>(stream)>>>(
+        img, out, reinterpret_cast<const int4*>(table), n_levels, n_streams * stack, stack,
+        w0, threshold, border);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One stream: img [rows, w0], out [5, rows, w0].
+extern "C" int detect_maps_launch(const float* img, float* out, const int* table,
+                                  int n_levels, int grid_x, int grid_y, int rows, int w0,
+                                  float threshold, int border, void* stream) {
+  return detect_maps_batch_launch(img, out, table, n_levels, grid_x, grid_y, 1, rows, w0,
+                                  threshold, border, stream);
 }

@@ -77,12 +77,13 @@ def _resize_mats(h: int, w: int, device: torch.device):
 
 def to_model(img: torch.Tensor) -> torch.Tensor:
     """[H,W] f32 image on any device -> [1,1,480,640] in [0, 1]: bilinear
-    resize when the size differs (f32 products), then /255."""
-    h, w = img.shape
+    resize when the size differs (f32 products), then /255. N streams'
+    images [N,H,W] -> [N,1,480,640]."""
+    h, w = img.shape[-2:]
     if (h, w) != (MODEL_H, MODEL_W):
         wy, wx = _resize_mats(h, w, img.device)
         img = wy @ img @ wx
-    return (img / 255.0)[None, None]
+    return (img / 255.0).reshape(-1, 1, MODEL_H, MODEL_W)
 
 
 class LoftrFeatureMatcher(FeatureMatcher):

@@ -15,6 +15,11 @@ occupies rows `row0[l] .. row0[l] + h_l` of a [rows, w0] f32 stack (see
 
 `detect_maps` runs `detect_maps_plain` for a CPU stack and launches the
 kernel (`csrc/detect.cu`, `detect_maps_cuda`) for a CUDA stack.
+`detect_maps_batch` does the same for N streams' stacks [N, rows, w0]: one
+launch serves all of them (`detect_maps_batch_cuda`, the Hopper form of
+`pallas_detect.detect_stage_multi_bands(..., n_streams=N)`), and each map
+comes back as [N, rows, w0]; its plain version is `detect_maps_plain` per
+stream.
 
 `detect_level` is the same kernel launched over ONE level at the level's own
 width: the Hopper form of the JAX package's per-level Pallas kernels
@@ -101,14 +106,14 @@ def level_maps_plain(img, threshold: float = 20.0, border: int = 31):
     return DetectMaps(score, m10, m01, filters.gaussian_blur(img), harris)
 
 
-def _check_stack(stack, dims):
+def _check_stack(stack, dims, lead=()):
     dims = tuple((int(h), int(w)) for h, w in dims)
     _, rows, w0 = level_layout(dims)
     if stack.dtype != torch.float32:
         raise TypeError(f"detection takes an f32 stack, got {stack.dtype}")
-    if tuple(stack.shape) != (rows, w0):
+    if tuple(stack.shape) != (*lead, rows, w0):
         raise ValueError(
-            f"stack has shape {tuple(stack.shape)}, the layout needs {(rows, w0)}"
+            f"stack has shape {tuple(stack.shape)}, the layout needs {(*lead, rows, w0)}"
         )
     return dims
 
@@ -128,6 +133,14 @@ def _levels_stacked(stack, dims, threshold, border, level_fn):
 def detect_maps_plain(stack, dims, threshold: float = 20.0, border: int = 31):
     """Plain PyTorch version of kernel B1 over a [rows, w0] level stack."""
     return _levels_stacked(stack, dims, threshold, border, level_maps_plain)
+
+
+def detect_maps_batch_plain(stacks, dims, threshold: float = 20.0, border: int = 31):
+    """Plain version of B1's batched launch: `detect_maps_plain` on each of
+    N stacks [N, rows, w0]; each map [N, rows, w0]."""
+    _check_stack(stacks, dims, lead=stacks.shape[:1])
+    per_stream = [detect_maps_plain(s, dims, threshold, border) for s in stacks]
+    return DetectMaps(*(torch.stack(ms) for ms in zip(*per_stream)))
 
 
 class TilePlan(NamedTuple):
@@ -161,32 +174,49 @@ def _device_table(dims, device):
     return torch.tensor(tile_plan(dims).table, dtype=torch.int32, device=device)
 
 
-def _launch(stack, dims, threshold, border):
-    """One launch of the B1 kernel over the levels `dims` of a CUDA stack."""
-    if stack.device.type != "cuda":
-        raise ValueError(f"the B1 kernel needs a CUDA tensor, got {stack.device}")
-    dims = _check_stack(stack, dims)
-    if not stack.is_contiguous():
-        raise ValueError("the level stack is not contiguous")
+def _launch(stacks, dims, threshold, border):
+    """One launch of the B1 kernel over the levels `dims` of N CUDA stacks
+    [N, rows, w0]. The output is one [5, N, rows, w0] tensor; each map
+    comes back as its [N, rows, w0] view."""
+    if stacks.device.type != "cuda":
+        raise ValueError(f"the B1 kernel needs a CUDA tensor, got {stacks.device}")
+    if stacks.dim() != 3:
+        raise ValueError(f"the launch takes stacks [N, rows, w0], got {tuple(stacks.shape)}")
+    dims = _check_stack(stacks, dims, lead=stacks.shape[:1])
+    if not stacks.is_contiguous():
+        raise ValueError("the level stacks are not contiguous")
+    n = stacks.shape[0]
     _, rows, w0 = level_layout(dims)
-    (gx, gy), table = tile_plan(dims).grid, _device_table(dims, stack.device)
-    out = torch.empty((5, rows, w0), dtype=torch.float32, device=stack.device)
-    err = _kernels.load().detect_maps_launch(
-        stack.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, rows, w0,
-        float(threshold), int(border), _kernels.stream_ptr(stack.device),
+    (gx, gy), table = tile_plan(dims).grid, _device_table(dims, stacks.device)
+    out = torch.empty((5, n, rows, w0), dtype=torch.float32, device=stacks.device)
+    err = _kernels.load().detect_maps_batch_launch(
+        stacks.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, n, rows, w0,
+        float(threshold), int(border), _kernels.stream_ptr(stacks.device),
     )
-    _kernels.check(err, "detect_maps_launch")
+    _kernels.check(err, "detect_maps_batch_launch")
     return DetectMaps(*out.unbind(0))
 
 
 def detect_maps_cuda(stack, dims, threshold: float = 20.0, border: int = 31):
     """Kernel B1: one launch over every level of a CUDA [rows, w0] stack."""
-    maps = _launch(stack, dims, threshold, border)
+    maps = _launch(stack[None], dims, threshold, border)
     detect_maps_cuda.launches += 1
-    return maps
+    return DetectMaps(*(m[0] for m in maps))
 
 
 detect_maps_cuda.launches = 0
+
+
+def detect_maps_batch_cuda(stacks, dims, threshold: float = 20.0, border: int = 31):
+    """Kernel B1 over N streams in one launch: CUDA stacks [N, rows, w0] ->
+    DetectMaps of [N, rows, w0] maps, counted in
+    `detect_maps_batch_cuda.launches` (not in `detect_maps_cuda`'s)."""
+    maps = _launch(stacks, dims, threshold, border)
+    detect_maps_batch_cuda.launches += 1
+    return maps
+
+
+detect_maps_batch_cuda.launches = 0
 
 
 def detect_level_cuda(img, threshold: float = 20.0, border: int = 31):
@@ -194,9 +224,9 @@ def detect_level_cuda(img, threshold: float = 20.0, border: int = 31):
     `_banded_kernel` (h > 96) or `_full_kernel` (h <= 96), counted under
     that name in `detect_level_cuda.launches`."""
     h, w = img.shape
-    maps = _launch(img, ((h, w),), threshold, border)
+    maps = _launch(img[None], ((h, w),), threshold, border)
     detect_level_cuda.launches["full" if h <= FULL_MAX_ROWS else "banded"] += 1
-    return maps
+    return DetectMaps(*(m[0] for m in maps))
 
 
 detect_level_cuda.launches = {"banded": 0, "full": 0}
@@ -208,6 +238,15 @@ def detect_maps(stack, dims, threshold: float = 20.0, border: int = 31):
     if stack.is_cuda:
         return detect_maps_cuda(stack, dims, threshold, border)
     return detect_maps_plain(stack, dims, threshold, border)
+
+
+def detect_maps_batch(stacks, dims, threshold: float = 20.0, border: int = 31):
+    """The five maps of N streams' level stacks [N, rows, w0], each
+    [N, rows, w0]: the plain version for a CPU tensor, one B1 launch for a
+    CUDA tensor."""
+    if stacks.is_cuda:
+        return detect_maps_batch_cuda(stacks, dims, threshold, border)
+    return detect_maps_batch_plain(stacks, dims, threshold, border)
 
 
 def detect_level(img, threshold: float = 20.0, border: int = 31):

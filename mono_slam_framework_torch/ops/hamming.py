@@ -27,16 +27,17 @@ def unpack_bits(packed, dtype=torch.float32):
 def distance_matrix(desc1, desc2, valid1, valid2):
     """Pairwise Hamming distances; invalid pairs are +inf.
 
-    desc1 [K1,8], desc2 [..., K2, 8] (a leading batch of second sets gives
-    [..., K1, K2]); valid masks match.
+    desc1 [..., K1, 8], desc2 [..., K2, 8] with broadcasting leading dims
+    (one set against a batch of sets [B, K2, 8] gives [B, K1, K2]; N streams'
+    sets [N, K1, 8] against [N, K2, 8] give [N, K1, K2]); valid masks match.
     """
     b1 = unpack_bits(desc1, torch.bfloat16)
     b2 = unpack_bits(desc2, torch.bfloat16)
     n1 = b1.sum(-1, dtype=torch.float32)
     n2 = b2.sum(-1, dtype=torch.float32)
     dot = (b1 @ b2.transpose(-1, -2)).to(torch.float32)
-    d = n1[:, None] + n2[..., None, :] - 2.0 * dot
-    ok = valid1[:, None] & valid2[..., None, :]
+    d = n1[..., :, None] + n2[..., None, :] - 2.0 * dot
+    ok = valid1[..., :, None] & valid2[..., None, :]
     return torch.where(ok, d, torch.inf)
 
 

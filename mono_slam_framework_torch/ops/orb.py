@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mono_slam_framework_torch.ops import detect
 
@@ -174,17 +175,24 @@ def pack_bits(bits):
 
 def _post_detect(maps, h0: int, w0: int, max_features: int) -> Features:
     """Per-level top-k, subpixel peak, orientation and rBRIEF over the
-    row-stacked detection maps."""
+    row-stacked detection maps [rows, W], or over N streams' maps
+    [N, rows, W] (the counterpart of the JAX package's vmap of
+    `_post_detect` in `multistream.extract_batch`): the top-k runs per
+    stream and per level over [N, 8, h0 * W], the gathers per stream, and
+    every Features field gains a leading N."""
+    if maps.score.dim() == 2:
+        one = _post_detect(detect.DetectMaps(*(m[None] for m in maps)), h0, w0, max_features)
+        return Features(*(x[0] for x in one))
     dev = maps.score.device
     take, sel, kmax, base, hl, wl, scale, octave = _kp_tables(
         h0, w0, max_features, dev
     )
-    W = maps.score.shape[1]
-    neg = torch.full((1, W), -torch.inf, dtype=maps.score.dtype, device=dev)
-    seg = torch.cat([maps.score, neg])[take].reshape(N_LEVELS, h0 * W)
-    vals_b, flat_b = torch.topk(seg, kmax, dim=1)
-    vals = vals_b.reshape(-1)[sel]
-    flat = flat_b.reshape(-1)[sel]
+    n, _, W = maps.score.shape
+    neg = torch.full((n, 1, W), -torch.inf, dtype=maps.score.dtype, device=dev)
+    seg = torch.cat([maps.score, neg], dim=1)[:, take].reshape(n, N_LEVELS, h0 * W)
+    vals_b, flat_b = torch.topk(seg, kmax, dim=2)
+    vals = vals_b.reshape(n, -1)[:, sel]
+    flat = flat_b.reshape(n, -1)[:, sel]
     valid = torch.isfinite(vals)
     # invalid slots (fewer corners than budget) may point past their level:
     # clip them in, as the JAX package's clamped gathers do
@@ -193,12 +201,12 @@ def _post_detect(maps, h0: int, w0: int, max_features: int) -> Features:
 
     # subpixel peak refinement on the raw Harris surface (quadratic fit per
     # axis, offset clamped to +-0.5)
-    hf = maps.harris.reshape(-1)
+    hf = maps.harris.reshape(n, -1)
 
     def at(dy, dx):
         yy = base + torch.clamp(ys + dy, min=0).minimum(hl - 1)
         xx = torch.clamp(xs + dx, min=0).minimum(wl - 1)
-        return hf[yy * W + xx]
+        return hf.gather(1, yy * W + xx)
 
     c0 = at(0, 0)
 
@@ -210,19 +218,29 @@ def _post_detect(maps, h0: int, w0: int, max_features: int) -> Features:
     xs_f = xs.to(torch.float32) + offset(at(0, -1), at(0, 1))
     ys_f = ys.to(torch.float32) + offset(at(-1, 0), at(1, 0))
 
-    flat_map = (base + ys) * W + xs
-    ang = torch.atan2(maps.m01.reshape(-1)[flat_map], maps.m10.reshape(-1)[flat_map])
+    # orientation over slots padded to a multiple of 64 per stream (padded
+    # slots read pixel 0): the CPU's elementwise loops run the last
+    # elements of a buffer through a scalar atan2 / cos / sin whose results
+    # can differ from the vector path's in the last bit, so without the pad
+    # a slot of a batch could differ from the same slot of a one-stream call
+    k = flat.shape[1]
+    flat_map = F.pad((base + ys) * W + xs, (0, -k % 64))
+    ang_p = torch.atan2(maps.m01.reshape(n, -1).gather(1, flat_map),
+                        maps.m10.reshape(n, -1).gather(1, flat_map))
+    ang = ang_p[:, :k]
 
     # rBRIEF: 256 rotated samples of the blur rounded to integers (half to
     # even, as jnp.round), bit i = sample[i] < sample[perm[i]]
     py, px, perm = _pattern(dev)
-    c, s = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
-    rx = torch.round(px[None] * c - py[None] * s).long()
-    ry = torch.round(px[None] * s + py[None] * c).long()
-    sx = torch.clamp(xs[:, None] + rx, min=0).minimum(wl[:, None] - 1)
-    sy = torch.clamp(ys[:, None] + ry, min=0).minimum(hl[:, None] - 1)
-    samples = torch.round(maps.blur.reshape(-1)[(base[:, None] + sy) * W + sx])
-    desc = pack_bits(samples < samples[:, perm])
+    c, s = torch.cos(ang_p)[:, :k, None], torch.sin(ang_p)[:, :k, None]
+    rx = torch.round(px * c - py * s).long()
+    ry = torch.round(px * s + py * c).long()
+    sx = torch.clamp(xs[..., None] + rx, min=0).minimum(wl[:, None] - 1)
+    sy = torch.clamp(ys[..., None] + ry, min=0).minimum(hl[:, None] - 1)
+    idx = (base[:, None] + sy) * W + sx
+    samples = torch.round(maps.blur.reshape(n, -1).gather(1, idx.reshape(n, -1)))
+    samples = samples.reshape(idx.shape)
+    desc = pack_bits(samples < samples[..., perm])
 
     return Features(
         xy=torch.stack([xs_f, ys_f], -1) * scale[:, None],
@@ -230,7 +248,7 @@ def _post_detect(maps, h0: int, w0: int, max_features: int) -> Features:
         desc=desc,
         score=torch.where(valid, vals, -torch.inf),
         valid=valid,
-        octave=octave,
+        octave=octave.expand(n, -1),
     )
 
 

@@ -11,7 +11,9 @@ from the input pose (Optimizer.cc:295).
 `pose_optimize_plain` below; CUDA tensors launch the hand-written kernel
 (`pose_opt_cuda.pose_optimize_cuda`), which computes the same schedule in
 one launch. `pose_lm_batched_plain` is the plain version of the kernel's
-batched launcher (`pose_opt_cuda.pose_lm_batched`).
+batched launcher (`pose_opt_cuda.pose_lm_batched`); `pose_optimize_batched`
+picks between the two by device, as `pose_optimize` does (the multi-stream
+steady step's two LM phases: one launch each for all N streams).
 
 Each round carries the chi2 of its accepted pose (as the Pallas kernel
 carries e2), and the next round's mask is reclassified from it: the chi2
@@ -157,3 +159,15 @@ def pose_optimize(T_init, Xw, uv, valid, K, info=None):
 
         return pose_opt_cuda.pose_optimize_cuda(T_init, Xw, uv, valid, K, info)
     return pose_optimize_plain(T_init, Xw, uv, valid, K, info)
+
+
+def pose_optimize_batched(T_init, Xw, uv, valid, K, info=None):
+    """The 4x10 schedule over B problems (leading axis B on every argument):
+    `pose_lm_batched_plain` for CPU tensors, one kernel B2 launch
+    (`pose_opt_cuda.pose_lm_batched`) for CUDA tensors. Returns (T [B,4,4],
+    inlier bool [B,E], n_good int32 [B])."""
+    if T_init.is_cuda:
+        from mono_slam_framework_torch.optim import pose_opt_cuda
+
+        return pose_opt_cuda.pose_lm_batched(T_init, Xw, uv, valid, K, info)
+    return pose_lm_batched_plain(T_init, Xw, uv, valid, K, info)

@@ -750,7 +750,15 @@ def prepare_spec_inputs(tracker, image) -> dict | None:
     """Build (without dispatching) the device inputs of a speculative steady
     step from the tracker's device-resident chain state. Returns None when
     the chain preconditions fail; mutates no tracking state, so a prepared
-    frame can still fall back to the fresh-dispatch path."""
+    frame can still fall back to the fresh-dispatch path.
+
+    Shared by `dispatch_steady_spec` (one stream, pipelined mode) and
+    `parallel.server.SlamServer`, which stacks several trackers' prepared
+    inputs into one `multistream.steady_step_batch` call: `kind` names the
+    step, `statics` its static arguments, `T_prev_host` the previous pose
+    for the batched `chain_T_init`, and `key` groups the frames that can
+    share a batched call (the statics and the image shape; the tables are
+    padded to common sizes at dispatch)."""
     m = tracker.matcher
     ch = getattr(tracker, "_fused_chain", None)
     if (
@@ -770,25 +778,42 @@ def prepare_spec_inputs(tracker, image) -> dict | None:
         return None  # window/geometry changed; chain rows are stale
     ext = ch["ext"]
     chain_px_d, chain_row_d, T2_d = ch["chain"]
+    img = np.asarray(image, np.float32)
+    # the static arguments of the steady step (the JAX package's statics)
+    statics = {
+        "ratio": float(m.threshold),
+        "cols": int(tracker.last_frame.keypoint_map.cols),
+        "width": float(tracker.img_width),
+        "height": float(tracker.img_height),
+        "use_octave_info": bool(tracker.octave_information),
+        "max_features": int(m.max_features),
+        "fast_threshold": float(m.fast_threshold),
+    }
     return {
-        "img_d": _upload(tracker, np.asarray(image, np.float32)),
+        "kind": "orb",
+        "img_d": _upload(tracker, img),
         "prev_feats": m.features_for(tracker.last_frame),
         "chain_px_d": chain_px_d,
         "chain_row_d": chain_row_d,
         "T2_d": T2_d,
-        "T_prev_d": _upload(tracker, np.asarray(ch["T_prev_host"], np.float32)),
+        "T_prev_host": np.asarray(ch["T_prev_host"], np.float32),
         "mp_pos_d": _mp_pos_for(tracker, ctx, ext),
         "ctx": ctx,
         "ext": ext,
+        "statics": statics,
+        "key": ("orb", tuple(sorted(statics.items())), img.shape),
     }
 
 
 def finish_spec(tracker, prep, feats, readback, chain) -> dict:
     """Package a dispatched steady step as the spec that run_steady's
-    speculative branch consumes. `readback` (a started HostCopy) lands
-    while the caller works on the next frame; the spec holds the device
-    tensors until run_steady consumes or drops it."""
+    speculative branch consumes. `readback` (a started HostCopy, or one
+    stream's row of a server group's shared copy: anything whose `wait()`
+    gives the `steady_fields` as numpy) lands while the caller works on the
+    next frame; the spec holds the device tensors until run_steady consumes
+    or drops it."""
     return {
+        "kind": "orb",
         "prev_frame_id": tracker.last_frame.id,
         "ctx": prep["ctx"],
         "ext": prep["ext"],
@@ -825,7 +850,6 @@ def dispatch_prepared(tracker, prep) -> dict:
     """Dispatch a speculative steady step from a prepared input set
     (`prepare_spec_inputs`)."""
     count(tracker, "dispatch")
-    m = tracker.matcher
     ctx = prep["ctx"]
     out = fused_tracking.steady_step(
         prep["img_d"],
@@ -833,7 +857,7 @@ def dispatch_prepared(tracker, prep) -> dict:
         prep["chain_px_d"],
         prep["chain_row_d"],
         prep["mp_pos_d"],
-        fused_tracking.chain_T_init(prep["T2_d"], prep["T_prev_d"]),
+        fused_tracking.chain_T_init(prep["T2_d"], _upload(tracker, prep["T_prev_host"])),
         ctx["kf_feats"],
         ctx["kf_px"],
         ctx["kf_row"],
@@ -841,13 +865,7 @@ def dispatch_prepared(tracker, prep) -> dict:
         ctx["normal_d"],
         ctx["maxdist_d"],
         _k_dev(tracker),
-        float(m.threshold),
-        int(tracker.last_frame.keypoint_map.cols),
-        float(tracker.img_width),
-        float(tracker.img_height),
-        bool(tracker.octave_information),
-        m.max_features,
-        m.fast_threshold,
+        **prep["statics"],
     )
     return finish_spec(
         tracker, prep, out.cur,

@@ -12,6 +12,9 @@ decode). A frame's association state is therefore a dense [L] row table
 (map-point row per cell, -1 = none), and per-pixel dedup is free (distinct
 cells decode to distinct pixels).
 
+`loftr_core_batch` is `_loftr_core` over N streams with a leading stream
+axis (parallel/multistream.py's `steady_step_loftr_batch`).
+
 `steady_step_loftr` runs, on the device of its image:
   encode (backbone + positional encoding)            models/loftr_native.py
   -> pairwise transformer + dual softmax vs the last frame (argmax per cell)
@@ -136,6 +139,71 @@ def _loftr_core(
     union_row = torch.where(cur_row >= 0, cur_row, new_row)
     T2, inlier2, n_good2 = pose_opt.pose_optimize(
         T1, mp_pos[torch.clamp(union_row, min=0)], cell_uv, union_row >= 0, K, info
+    )
+    out = LoftrOut(T1, n_good1, n_matches, row, okm, inlier1, j1, T2, n_good2,
+                   new_row, inlier2, vis)
+    return out, union_row, T2
+
+
+def loftr_core_batch(
+    f_cur, model, f_prev, prev_cellrow, mp_pos, T_init, kf_feats, kf_cellrow,
+    first_slot, ctx_normal, ctx_maxdist, cell_uv, K, info_val, threshold: float,
+    width: float, height: float,
+):
+    """`_loftr_core` over N streams: f_cur / f_prev [N, L, C], prev_cellrow
+    [N, L], mp_pos [N, P, 3], T_init [N, 4, 4], kf_feats [N, NK, L, C],
+    kf_cellrow [N, NK, L], first_slot / ctx_maxdist [N, R], ctx_normal
+    [N, R, 3], K [N, 3, 3]; the cell grid, the information weight and the
+    statics are shared. The transformer runs once over the N pairs of the
+    motion phase and once over the N x NK pairs of the local phase; each
+    pose LM is ONE `pose_opt.pose_optimize_batched` call for all N streams.
+    Returns (LoftrOut, union_row, T2), every field with the leading N.
+    Padding as in `fused_tracking.steady_core_batch` (a padded keyframe slot
+    holds a real keyframe's features and kf_cellrow -1)."""
+    n, L, C = f_cur.shape
+    conf = loftr_native.confidence_from_features(model, f_cur, f_prev)
+    j1, v1 = _best(conf)  # [N, L]
+    okm = v1 > threshold
+    row = torch.where(okm, torch.gather(prev_cellrow, 1, j1), NONE)
+    keep = row >= 0
+    n_matches = torch.sum(okm.to(torch.int32), dim=1)
+
+    info = torch.full((n, L), float(info_val), dtype=torch.float32, device=f_cur.device)
+    uv = cell_uv.expand(n, L, 2)
+    T1, inlier1, n_good1 = pose_opt.pose_optimize_batched(
+        T_init, fused_tracking._rows_of(mp_pos, torch.clamp(row, min=0)), uv, keep, K, info
+    )
+
+    seen = torch.zeros(mp_pos.shape[:2], dtype=torch.int32, device=row.device)
+    seen = seen.scatter_reduce(1, torch.clamp(row, min=0).long(), keep.to(torch.int32), "amax")
+    R = first_slot.shape[1]
+    vis = (
+        fused_tracking._frustum_batch(mp_pos[:, :R], ctx_normal, ctx_maxdist, T1, K, width,
+                                      height)
+        & (first_slot >= 0)
+        & (seen[:, :R] == 0)
+    )
+    n_kf = kf_feats.shape[1]
+    kf_active = fused_tracking._kf_active_batch(vis, first_slot, n_kf)
+
+    c = loftr_native.confidence_from_features(
+        model, f_cur[:, None].expand(n, n_kf, L, C).reshape(n * n_kf, L, C),
+        kf_feats.reshape(n * n_kf, L, C),
+    ).reshape(n, n_kf, L, L)
+    j, v = _best(c)  # [N, NK, L]
+    rows_nk = torch.where((v > threshold) & kf_active[..., None],
+                          torch.gather(kf_cellrow, 2, j), NONE)
+
+    cur_row = torch.where(keep & inlier1, row, NONE)
+    first_kf = fused_tracking._first_true(rows_nk >= 0, 1)
+    any_new = (rows_nk >= 0).any(dim=1)
+    proposed = torch.gather(rows_nk, 1, first_kf[:, None])[:, 0]
+    new_row = torch.where(any_new & (cur_row < 0), proposed, NONE)
+
+    union_row = torch.where(cur_row >= 0, cur_row, new_row)
+    T2, inlier2, n_good2 = pose_opt.pose_optimize_batched(
+        T1, fused_tracking._rows_of(mp_pos, torch.clamp(union_row, min=0)), uv,
+        union_row >= 0, K, info,
     )
     out = LoftrOut(T1, n_good1, n_matches, row, okm, inlier1, j1, T2, n_good2,
                    new_row, inlier2, vis)
@@ -525,7 +593,9 @@ def prepare_spec_inputs(tracker, image) -> dict | None:
     """Build (without dispatching) the device inputs of a speculative LoFTR
     steady step from the tracker's device-resident chain, sharing
     fused_host's counters. Returns None when the chain preconditions fail;
-    mutates no tracking state."""
+    mutates no tracking state. As fused_host.prepare_spec_inputs, it gives
+    `kind`, `statics`, `T_prev_host` and the server's grouping `key` (the
+    statics, the shared information weight and the image shape)."""
     m = tracker.matcher
     ch = getattr(tracker, "_loftr_chain", None)
     if (
@@ -547,24 +617,37 @@ def prepare_spec_inputs(tracker, image) -> dict | None:
         return None  # window/geometry changed; chain rows are stale
     ext = ch["ext"]
     cellrow_d, T2_d = ch["chain"]
+    img = np.asarray(image, np.float32)
+    h, w = img.shape
+    statics = {
+        "threshold": float(m.threshold),
+        "width": float(tracker.img_width),
+        "height": float(tracker.img_height),
+        "resize_hw": None if (h, w) == (lm.MODEL_H, lm.MODEL_W) else (lm.MODEL_H, lm.MODEL_W),
+    }
+    info_val = _info_val(tracker, m, tables)
     return {
-        "img_d": fused_host._upload(tracker, np.asarray(image, np.float32)),
+        "kind": "loftr",
+        "img_d": fused_host._upload(tracker, img),
         "f_prev": m._features(tracker.last_frame)[0],
         "cellrow_d": cellrow_d,
         "T2_d": T2_d,
-        "T_prev_d": fused_host._upload(tracker, np.asarray(ch["T_prev_host"], np.float32)),
+        "T_prev_host": np.asarray(ch["T_prev_host"], np.float32),
         "mp_pos_d": fused_host._mp_pos_for(tracker, ctx, ext),
-        "info_val": _info_val(tracker, m, tables),
+        "info_val": info_val,
         "tables": tables,
         "ctx": ctx,
         "ext": ext,
+        "statics": statics,
+        "key": ("loftr", tuple(sorted(statics.items())), info_val, img.shape),
     }
 
 
 def finish_spec(tracker, prep, f_cur, readback, chain) -> dict:
     """Package a dispatched LoFTR steady step as the spec that run_steady's
-    speculative branch consumes; `readback` (a started HostCopy) lands
-    while the caller works on the next frame."""
+    speculative branch consumes; `readback` (a started HostCopy, or one
+    stream's row of a server group's shared copy) lands while the caller
+    works on the next frame."""
     return {
         "kind": "loftr",
         "prev_frame_id": tracker.last_frame.id,
@@ -584,7 +667,8 @@ def dispatch_prepared(tracker, prep) -> dict:
     ctx = prep["ctx"]
     f_cur, out, union_row, T2 = steady_step_loftr(
         prep["img_d"], m.model, prep["f_prev"], prep["cellrow_d"], prep["mp_pos_d"],
-        fused_tracking.chain_T_init(prep["T2_d"], prep["T_prev_d"]),
+        fused_tracking.chain_T_init(prep["T2_d"],
+                                    fused_host._upload(tracker, prep["T_prev_host"])),
         ctx["kf_feats"], ctx["kf_cellrow"], ctx["first_slot_d"], ctx["normal_d"],
         ctx["maxdist_d"], prep["tables"]["uv"], fused_host._k_dev(tracker),
         prep["info_val"], float(m.threshold),

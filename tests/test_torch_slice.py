@@ -221,4 +221,7 @@ def test_port_imports_without_jax():
     for m in ("run", "ab_sweep", "interactive", "quality_bench", "io.datasets", "utils.app",
               "native.frameio"):
         assert prefix + m in mods, m
+    # multi-stream serving
+    for m in ("parallel.multistream", "parallel.server"):
+        assert prefix + m in mods, m
     assert len(mods) >= 36 and len(tools) >= 3
