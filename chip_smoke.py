@@ -145,6 +145,41 @@ line and raises if it fails:
                 stream OK, ATE < 0.15 and within 0.05 of the same stream run
                 as an independent System (LoFTR: 0.2 and 0.06), every
                 batched dispatch consumed.
+ 27. mesh     — the multi-device layer's mesh (parallel/mesh.py; smoke_mesh:
+                every visible card up to 4, or 4 shards on cuda:0 when there
+                is one card): nvidia-smi of every card, peer access between
+                card pairs, B1 and B2 on every distinct card of the mesh
+                against their plain versions (each launch on its tensors'
+                card), psum / pmax / all_gather against the unsharded ops.
+                Every multi-device phase prints mesh_size, distinct_cards
+                and the card;
+ 28. sharded_steady — multistream.steady_step_batch_sharded over the mesh on
+                multistream's regime (8 streams, 640x480, 2000 features):
+                one call issued under the sync debug mode, 8 chained calls
+                against steady_step_batch on one card (rows and n_good
+                equal, T within 1e-4), B1 once and B2 twice per shard and
+                call, ms per call and device ops in turns;
+ 29. sharded_loftr_steady — steady_step_loftr_batch_sharded over 4 streams
+                at 640x480 against the one-card batch, in bf16 and f32
+                (f_cur within 2e-3, >= 0.99 of the entries within 1e-3);
+ 30. sharded_sweep — sharded_matcher_sweep and sharded_tracking_step over 8
+                pairs of the slice's 640x480 frames at 2000 features: each
+                pair equal to sweep._pair_step, each T equal to
+                pose_optimize; pairs/s against one-pair calls;
+ 31. loftr_tp — loftr_tp_confidence at L = 1200 on test_loftr.py's pair
+                against confidence_from_features (f32 < 1e-5, argmax >
+                0.999; bf16 reported), sharded_loftr_sweep over 8 encoded
+                pairs against match_features_topk per pair, times;
+ 32. gba_sharded — global_bundle_adjust_sharded against global_bundle_adjust
+                on a synthetic sequence of 120 keyframes and ~170,000 edges
+                (chi2 rtol 1e-3, T 1e-3, X 1e-2), then the loop GBA through
+                LoopClosing with the mesh handed to device_io (the staged
+                markers, the propagation, poses within 5e-3 of the one-card
+                route), times;
+ 33. ab_sweep_sharded — ab_sweep.main(--sharded-loftr) over run_cli's 42 PNG
+                frames with the phase's mesh (41 pairs padded to a mesh
+                multiple): pairs/s, matches, each count against per-pair
+                matching.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -157,6 +192,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import pathlib
@@ -187,17 +223,21 @@ from mono_slam_framework_torch.io import datasets  # noqa: E402
 from mono_slam_framework_torch.geometry import se3  # noqa: E402
 from mono_slam_framework_torch.io import trajectory  # noqa: E402
 from mono_slam_framework_torch.matchers import LoftrFeatureMatcher, OrbFeatureMatcher  # noqa: E402
+from mono_slam_framework_torch.matchers import loftr_matcher  # noqa: E402
 from mono_slam_framework_torch.models import loftr_native  # noqa: E402
 from mono_slam_framework_torch.native import frameio  # noqa: E402
 from mono_slam_framework_torch.ops import detect, hamming, orb  # noqa: E402
 from mono_slam_framework_torch.optim import pose_opt, pose_opt_cuda  # noqa: E402
-from mono_slam_framework_torch.parallel import SlamServer, multistream  # noqa: E402
+from mono_slam_framework_torch import parallel  # noqa: E402
+from mono_slam_framework_torch.optim import bundle_adjust  # noqa: E402
+from mono_slam_framework_torch.parallel import SlamServer, multistream, sweep  # noqa: E402
+from mono_slam_framework_torch.slam import device_io, loop_closing  # noqa: E402
 from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
 from mono_slam_framework_torch.slam import KeyFrameMatchDatabase, System  # noqa: E402
 from mono_slam_framework_torch.slam import fused_host, fused_loftr, fused_tracking  # noqa: E402
 from mono_slam_framework_torch.slam import map_model  # noqa: E402
 from mono_slam_framework_torch.slam import system as system_mod  # noqa: E402
-from mono_slam_framework_torch.slam.frame import reset_frame_ids  # noqa: E402
+from mono_slam_framework_torch.slam.frame import Frame, reset_frame_ids  # noqa: E402
 from mono_slam_framework_torch.slam.map_model import MapPoint, reset_map_ids  # noqa: E402
 from mono_slam_framework_torch.utils import AsyncSlamDriver  # noqa: E402
 
@@ -2511,16 +2551,18 @@ def multistream_setup(dev, cfg: Config = FULL, n_streams: int = MULTI_STREAMS,
     }
 
 
-def multistream_drive(ms: dict, n_calls: int) -> list:
+def multistream_drive(ms: dict, n_calls: int, mesh=None) -> list:
     """n_calls chained multistream.steady_step_batch calls over all N
-    streams (each stream chained as `drive` chains one). Returns the
-    SteadyOuts."""
+    streams (each stream chained as `drive` chains one), or
+    steady_step_batch_sharded calls over `mesh`. Returns the SteadyOuts."""
     cfg = ms["cfg"]
     mp_pos, kf_feats, kf_px, kf_row, first_slot, normal, maxdist, K = ms["tables"]
     prev_feats, prev_px, prev_row, T_prev, T_prev2 = ms["start"]
+    step = multistream.steady_step_batch if mesh is None else functools.partial(
+        parallel.steady_step_batch_sharded, mesh)
     outs = []
     for t in range(n_calls):
-        out = multistream.steady_step_batch(
+        out = step(
             ms["frames"][t], prev_feats, prev_px, prev_row, mp_pos,
             fused_tracking.chain_T_init(T_prev, T_prev2), kf_feats, kf_px, kf_row, first_slot,
             normal, maxdist, K, RATIO, cfg.w, float(cfg.w), float(cfg.h), True,
@@ -2589,7 +2631,7 @@ def device_ops(fn, n: int) -> float:
     return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()) / n
 
 
-def multistream_phase(dev) -> dict:
+def multistream_phase(dev, ms: dict) -> dict:
     """Phase multistream (bench.py::bench_multistream's regime on the slice's
     seeded maps): N = 8 streams at 640x480, 2000 features, tables of 1024,
     8 local keyframes; 30 timed batched calls after one warm-up, and the
@@ -2597,9 +2639,8 @@ def multistream_phase(dev) -> dict:
     (batched, one-stream, one-stream, batched). Every stream of every call
     is held against its one-stream step, the batch against its plain
     kernels over MULTI_PLAIN_FRAMES calls, and the launches per call are
-    counted (B1 once, B2 twice). Returns the record with the batched
-    launches' bare times."""
-    ms = multistream_setup(dev)
+    counted (B1 once, B2 twice). `ms` is multistream_setup(dev). Returns
+    the record with the batched launches' bare times."""
     cfg, n, calls = ms["cfg"], ms["n"], MULTI_TIMED + 1
     sync = lambda: torch.cuda.synchronize(dev)  # noqa: E731
 
@@ -2862,6 +2903,617 @@ def server_phases(dev) -> dict:
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# the multi-device layer: a mesh driven from one process (parallel/mesh.py)
+
+MESH_SHARDS = 4  # the mesh: up to 4 cards, or 4 shards on the one card
+SHARDED_CALLS = 8  # chained sharded steady calls, held against the one-device batch
+SHARDED_TIMED = 8  # calls per timed turn (sharded, one device, one device, sharded)
+SHARDED_LOFTR_STREAMS = 4
+SWEEP_PAIRS = 8
+MAX_SHARDED_LOFTR_F = 2e-3  # tests/test_multistream_sharded.py:158-163
+MAX_SHARDED_LOFTR_ENTRY = 1e-3
+MIN_SHARDED_LOFTR_SHARE = 0.99
+MAX_TP_F32 = 1e-5  # tests/test_parallel.py:33-44, phase loftr_model
+MIN_TP_ARGMAX = 0.999
+MAX_SWEEP_VALS_F32 = 1e-5
+GBA_KF = 120  # the synthetic long sequence: >= 100 keyframes, >= 100,000 edges
+GBA_POINTS = 2000
+GBA_MIN_EDGES = 100_000
+GBA_CHI2_RTOL, MAX_GBA_T, MAX_GBA_X = 1e-3, 1e-3, 1e-2  # tests/test_parallel.py:119-121
+MAX_GBA_ROUTE_POSE = 5e-3  # tests/test_gba_sharded_pipeline.py:143-146
+
+
+def smoke_mesh(axis: str = "data"):
+    """The mesh of the multi-device phases: every visible card up to
+    MESH_SHARDS when there is more than one, else MESH_SHARDS shards on
+    cuda:0 (every step but the traffic between cards)."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return parallel.make_mesh(min(n, MESH_SHARDS), axis=axis)
+    return parallel.make_mesh(devices=["cuda:0"] * MESH_SHARDS, axis=axis)
+
+
+def mesh_record(mesh) -> dict:
+    return {"mesh_size": mesh.size, "distinct_cards": len(set(mesh.devices)),
+            "card": card(mesh.first)}
+
+
+def sync_mesh(mesh) -> None:
+    for d in set(mesh.devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _mesh_ms(mesh, fn, n: int = 5) -> float:
+    """Host ms per call of fn, from the first issue to the last device's
+    end (every card of the mesh synchronized), after one warm-up call."""
+    fn()
+    sync_mesh(mesh)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync_mesh(mesh)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def timed_mesh(mesh, fn):
+    """(fn(), host seconds from its issue to the end of every card's work)."""
+    sync_mesh(mesh)
+    t0 = time.perf_counter()
+    out = fn()
+    sync_mesh(mesh)
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """torch.cuda.set_sync_debug_mode("error") inside: an op that makes the
+    host wait on a card raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def check_mesh_cards(mesh) -> dict:
+    """B1 and B2 launched on every distinct card of the mesh against their
+    plain versions there (the per-device launch: the shared-memory limit
+    raised on each card, each launch on its tensors' card); each output
+    must lie on the card of its inputs."""
+    img = loftr_pair()[0]
+    args = pose_problem()
+    out = {}
+    for d in sorted(set(mesh.devices), key=lambda d: d.index):
+        b1 = check_b1(img, d)
+        t = [torch.from_numpy(a).to(d) for a in args]
+        got = pose_opt_cuda.pose_optimize_cuda(*t)
+        if any(x.device != d for x in got):
+            raise AssertionError(f"B2's outputs left {d}")
+        b2 = compare_b2(got, pose_opt.pose_optimize_plain(*t), f"2000 edges on {d}")
+        torch.cuda.synchronize(d)
+        out[str(d)] = {"b1_max_abs_err": b1["max_abs_err"], "b1_score_flips": b1["score_flips"],
+                       "b2_T_max_abs_err": b2["T_max_abs_err"], "b2_n_good": b2["n_good"]}
+    return out
+
+
+def check_collectives(mesh) -> dict:
+    """psum / pmax / all_gather over seeded per-shard partials on the cards
+    against the unsharded reductions: the sum in mesh order exactly, and
+    within f32 rounding of the CPU's float64 sum."""
+    rng = np.random.default_rng(3)
+    host = [rng.normal(size=(64, 6, 6)).astype(np.float32) for _ in range(mesh.size)]
+    parts = [torch.from_numpy(h).to(d) for h, d in zip(host, mesh.devices)]
+    want = sum(h.astype(np.float64) for h in host)
+    exact = parts[0].to(mesh.first)
+    for q in parts[1:]:
+        exact = exact + q.to(mesh.first)
+    rec = {"psum_max_abs_err": 0.0}
+    for d, got in zip(mesh.devices, mesh.psum(parts)):
+        if got.device != d or not torch.equal(got.to(mesh.first), exact):
+            raise AssertionError(f"psum on {d} differs from the sum in mesh order")
+        rec["psum_max_abs_err"] = max(rec["psum_max_abs_err"],
+                                      float(np.abs(got.cpu().numpy() - want).max()))
+    for d, got in zip(mesh.devices, mesh.pmax(parts)):
+        if got.device != d or not np.array_equal(got.cpu().numpy(), np.max(host, axis=0)):
+            raise AssertionError(f"pmax on {d} differs from the elementwise max")
+    for d, got in zip(mesh.devices, mesh.all_gather(parts, dim=1)):
+        if got.device != d or not np.array_equal(got.cpu().numpy(), np.concatenate(host, 1)):
+            raise AssertionError(f"all_gather on {d} differs from the concatenation")
+    if rec["psum_max_abs_err"] > 1e-5:
+        raise AssertionError(f"psum differs from the float64 sum: {rec}")
+    return rec
+
+
+def mesh_phase(mesh) -> dict:
+    """Phase mesh (see the module docstring)."""
+    n = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    rec = {"phase": "mesh", **mesh_record(mesh), "visible_cards": n, "nvidia_smi": smi,
+           "devices": [str(d) for d in mesh.devices],
+           "peer_access": {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+                           for i in range(n) for j in range(n) if i != j},
+           "per_card": check_mesh_cards(mesh), "collectives": check_collectives(mesh)}
+    _print(rec)
+    return rec
+
+
+def compare_steady_outs(got: list, ref: list) -> dict:
+    """Sharded SteadyOuts against the one-device batch's, call by call:
+    every integer field equal, T1 and T2 within MAX_MULTI_POSE_DIFF."""
+    equal, pose = True, 0.0
+    for a, b in zip(got, ref):
+        for name, x in fused_tracking.steady_fields(a).items():
+            y = fused_tracking.steady_fields(b)[name]
+            if x.is_floating_point():
+                pose = max(pose, float((x - y).abs().max()))
+            else:
+                equal &= bool(torch.equal(x, y))
+        for x, y in ((a.motion.n_good, b.motion.n_good), (a.local.n_good, b.local.n_good),
+                     (a.chain_px, b.chain_px), (a.union_row, b.union_row)):
+            equal &= bool(torch.equal(x, y))
+    return {"rows_and_n_good_equal": equal, "pose_max_abs_diff": pose}
+
+
+def sharded_steady_phase(mesh, ms: dict) -> dict:
+    """Phase sharded_steady: steady_step_batch_sharded over the mesh on
+    multistream_setup's regime (8 streams at 640x480, 2000 features, 8 local
+    keyframes, tables of 1024) against steady_step_batch on one card."""
+    calls = SHARDED_CALLS
+    multistream_drive(ms, 1, mesh)  # warm-up: every shard's tables and plans
+    sync_mesh(mesh)
+    _reset_launches()
+    with no_host_sync():
+        multistream_drive(ms, 1, mesh)  # one whole call issued with no host wait
+    sync_mesh(mesh)
+    one_call = _serving_launches()
+    _reset_launches()
+    sharded = multistream_drive(ms, calls, mesh)
+    sync_mesh(mesh)
+    launches = _serving_launches()
+    single = multistream_drive(ms, calls)
+    agree = compare_steady_outs(sharded, single)
+    times = []
+    for fn in (lambda: multistream_drive(ms, SHARDED_TIMED, mesh),
+               lambda: multistream_drive(ms, SHARDED_TIMED),
+               lambda: multistream_drive(ms, SHARDED_TIMED),
+               lambda: multistream_drive(ms, SHARDED_TIMED, mesh)):
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        fn()
+        sync_mesh(mesh)
+        times.append((time.perf_counter() - t0) * 1e3 / SHARDED_TIMED)
+    rec = {"phase": "sharded_steady", **mesh_record(mesh), "streams": ms["n"],
+           "streams_per_shard": ms["n"] // mesh.size, "calls": calls,
+           "launches": launches, "launches_one_call": one_call,
+           "sync_free_call": True, **agree,
+           "ms_per_call_sharded": [times[0], times[3]],
+           "ms_per_call_one_device": [times[1], times[2]],
+           "device_ops_per_call_sharded": device_ops(lambda: multistream_drive(ms, 1, mesh), 2),
+           "device_ops_per_call_one_device": device_ops(lambda: multistream_drive(ms, 1), 2)}
+    _print(rec)
+    k = mesh.size * (mesh.first.type == "cuda")  # launches per call: one B1, two B2 a shard
+    want = {"b1": 0, "b1_batch": k * calls, "b2": 2 * k * calls}
+    if launches != want or one_call != {"b1": 0, "b1_batch": k, "b2": 2 * k}:
+        raise AssertionError(f"sharded steady launches {launches} / {one_call}, want {want}")
+    if not agree["rows_and_n_good_equal"] or agree["pose_max_abs_diff"] > MAX_MULTI_POSE_DIFF:
+        raise AssertionError(f"the sharded batch differs from the one-card batch: {agree}")
+    return {**rec, "launches": {k: launches[k] + one_call[k] for k in ("b1_batch", "b2")}}
+
+
+def loftr_batch_inputs(f, n_kf: int = 2, rcap: int = 1280, seed: int = 11, h: int = 480,
+                       w: int = 640, focal: float = 500.0) -> tuple:
+    """N streams' steady_step_loftr_batch arguments after (imgs, model)
+    around their encoded features f [N, L, C] (one device): motion rows for
+    the even cells, keyframe rows for the odd ones (keyframe slot 0 holds
+    the stream's own features, slot 1 another stream's), positions
+    back-projected at seeded depths. Ends with info_val."""
+    n, L, _ = f.shape
+    dev = f.device
+    gw = w // 16
+    rng = np.random.default_rng(seed)
+    cells = np.arange(L)
+    cell_uv = np.stack([(cells % gw) * 16, (cells // gw) * 16], -1).astype(np.float32)
+    prev_cellrow = np.full((n, L), -1, np.int32)
+    kf_cellrow = np.full((n, n_kf, L), -1, np.int32)
+    mp_pos = np.zeros((n, rcap + 4, 3), np.float32)
+    first_slot = np.full((n, rcap), -1, np.int32)
+    for i in range(n):
+        z = rng.uniform(4.0, 8.0, L)
+        mp_pos[i, :L] = np.stack([(cell_uv[:, 0] - w / 2) * z / focal,
+                                  (cell_uv[:, 1] - h / 2) * z / focal, z], -1)
+        prev_cellrow[i, ::2] = np.arange(0, L, 2)
+        kf_cellrow[i, 0, 1::2] = np.arange(1, L, 2)
+        first_slot[i, 1:L:2] = 0
+    normal = mp_pos[:, :rcap] / np.maximum(
+        np.linalg.norm(mp_pos[:, :rcap], axis=-1, keepdims=True), 1e-9)
+    maxdist = 1.5 * np.linalg.norm(mp_pos[:, :rcap], axis=-1)
+    K = np.broadcast_to(np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
+                                 np.float32), (n, 3, 3)).copy()
+    T_init = np.broadcast_to(np.eye(4, dtype=np.float32), (n, 4, 4)).copy()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    kf_feats = torch.stack([f, f.flip(0)], 1)[:, :n_kf]
+    return (f[:, None], t(prev_cellrow), t(mp_pos), t(T_init), kf_feats.contiguous(),
+            t(kf_cellrow), t(first_slot), t(normal.astype(np.float32)),
+            t(maxdist.astype(np.float32)), t(cell_uv), t(K), 1.0 / 64.0)
+
+
+def loftr_batch_agreement(got, ref) -> dict:
+    """Sharded against one-device steady_step_loftr_batch outputs with
+    tests/test_multistream_sharded.py's measures: f_cur's largest
+    difference, and the share of the other outputs' entries within 1e-3."""
+    flat = lambda out: torch.cat([x.reshape(-1).double().cpu()  # noqa: E731
+                                  for x in (*out[1], out[2], out[3])])
+    a, b = flat(got), flat(ref)
+    return {"f_cur_max_abs_diff": float((got[0] - ref[0]).abs().max()),
+            "entries_within_1e-3": float(torch.isclose(
+                a, b, rtol=MAX_SHARDED_LOFTR_ENTRY, atol=MAX_SHARDED_LOFTR_ENTRY)
+                .double().mean())}
+
+
+def sharded_loftr_steady_phase(mesh, ms: dict) -> dict:
+    """Phase sharded_loftr_steady: steady_step_loftr_batch_sharded over 4
+    streams at 640x480 (the first frame of multistream_setup's streams)
+    against steady_step_loftr_batch on one card, in the card's bf16 and in
+    f32 (loftr_f32)."""
+    dev = mesh.first
+    n = SHARDED_LOFTR_STREAMS
+    imgs = ms["frames"][0][:n].contiguous()
+    model = loftr_native.load_model(device=dev)
+    statics = dict(threshold=LOFTR_THRESHOLD, width=640.0, height=480.0, resize_hw=None)
+    rec = {"phase": "sharded_loftr_steady", **mesh_record(mesh), "streams": n,
+           "size": list(imgs.shape[1:])}
+    for precision, ctx in (("bf16", contextlib.nullcontext), ("f32", loftr_f32)):
+        with ctx():
+            pos = loftr_batch_inputs(loftr_native.encode(model, loftr_matcher.to_model(imgs)))
+            run_sharded = lambda: parallel.steady_step_loftr_batch_sharded(  # noqa: E731
+                mesh, imgs, model, *pos, **statics)
+            run_one = lambda: multistream.steady_step_loftr_batch(  # noqa: E731
+                imgs, model, *pos, **statics)
+            ref = run_one()
+            got = run_sharded()
+            sync_mesh(mesh)
+            rec[precision] = loftr_batch_agreement(got, ref)
+            rec[precision]["motion_rows"] = int((ref[1].row >= 0).sum())
+            if precision == "bf16":
+                rec["ms_per_call_sharded"] = [_mesh_ms(mesh, run_sharded)]
+                rec["ms_per_call_one_device"] = [_mesh_ms(mesh, run_one), _mesh_ms(mesh, run_one)]
+                rec["ms_per_call_sharded"].append(_mesh_ms(mesh, run_sharded))
+    _print(rec)
+    for precision in ("bf16", "f32"):
+        r = rec[precision]
+        if not (r["f_cur_max_abs_diff"] <= MAX_SHARDED_LOFTR_F
+                and r["entries_within_1e-3"] > MIN_SHARDED_LOFTR_SHARE):
+            raise AssertionError(f"sharded LoFTR batch differs ({precision}): {rec}")
+    return rec
+
+
+def sharded_sweep_phase(mesh, images) -> dict:
+    """Phase sharded_sweep: sharded_matcher_sweep and sharded_tracking_step
+    over SWEEP_PAIRS pairs of consecutive 640x480 frames at 2000 features,
+    each pair against _pair_step on one card, each pose problem against
+    pose_optimize; pairs/s against one-pair calls."""
+    dev, k = mesh.first, SWEEP_PAIRS
+    imgs = torch.from_numpy(np.stack(images[: k + 1])).to(dev)
+    i1, i2 = imgs[:k].contiguous(), imgs[1:].contiguous()
+    mf = FULL.max_features
+    run_sweep = lambda: parallel.sharded_matcher_sweep(mesh, i1, i2, mf, RATIO)  # noqa: E731
+    run_pairs = lambda: [sweep._pair_step(i1[i], i2[i], mf, RATIO)  # noqa: E731
+                         for i in range(k)]
+    run_sweep()
+    sync_mesh(mesh)
+    _reset_launches()
+    xy1, xy2, ok = run_sweep()
+    sync_mesh(mesh)
+    sweep_launches = _serving_launches()
+    singles = run_pairs()
+    equal = all(torch.equal(xy1[i], a) and torch.equal(xy2[i], b) and torch.equal(ok[i], c)
+                for i, (a, b, c) in enumerate(singles))
+    probs = [pose_problem(seed=s) for s in range(k)]
+    T0, X, uv, valid, K, _ = (np.stack(x) for x in zip(*probs))
+    t = [torch.from_numpy(a).to(dev) for a in (T0, X, uv, valid)]
+    K1 = torch.from_numpy(K[0]).to(dev)
+    run_track = lambda: parallel.sharded_tracking_step(  # noqa: E731
+        mesh, i1, i2, *t, K1, mf, RATIO)
+    run_track()
+    sync_mesh(mesh)
+    _reset_launches()
+    T_opt, n_inl, n_match = run_track()
+    sync_mesh(mesh)
+    track_launches = _serving_launches()
+    T_equal = n_equal = True
+    for i in range(k):
+        T_ref, _, n_ref = pose_opt.pose_optimize(*(x[i] for x in t), K1)
+        T_equal &= bool(torch.equal(T_opt[i], T_ref))
+        n_equal &= int(n_inl[i]) == int(n_ref) and int(n_match[i]) == int(singles[i][2].sum())
+    sweep_ms = [_mesh_ms(mesh, run_sweep)]
+    pairs_ms = [_mesh_ms(mesh, run_pairs), _mesh_ms(mesh, run_pairs)]
+    sweep_ms.append(_mesh_ms(mesh, run_sweep))
+    rec = {"phase": "sharded_sweep", **mesh_record(mesh), "pairs": k,
+           "size": list(i1.shape[1:]),
+           "max_features": mf, "matches_per_pair": ok.sum(1).tolist(),
+           "sweep_equal_per_pair": equal, "tracking_T_equal": T_equal,
+           "tracking_counts_equal": n_equal, "n_inliers": n_inl.tolist(),
+           "sweep_launches": sweep_launches, "tracking_launches": track_launches,
+           "sweep_pairs_per_s": [k * 1e3 / x for x in sweep_ms],
+           "one_pair_calls_pairs_per_s": [k * 1e3 / x for x in pairs_ms],
+           "tracking_step_ms": _mesh_ms(mesh, run_track)}
+    _print(rec)
+    if not (equal and T_equal and n_equal):
+        raise AssertionError(f"sharded sweep differs from one-pair calls: {rec}")
+    n = mesh.size * (dev.type == "cuda")  # per shard: B1 per image set, B2 once
+    if sweep_launches != {"b1": 0, "b1_batch": 2 * n, "b2": 0} or \
+            track_launches != {"b1": 0, "b1_batch": 2 * n, "b2": n}:
+        raise AssertionError(f"sharded sweep launches {sweep_launches} / {track_launches}")
+    return {**rec, "launches": {"b1_batch": sweep_launches["b1_batch"]
+                                + track_launches["b1_batch"], "b2": track_launches["b2"]}}
+
+
+def conf_agreement(got, ref) -> dict:
+    g, r = got[0].cpu().numpy(), ref[0].cpu().numpy()
+    return {"max_abs": float(np.abs(g - r).max()),
+            "argmax_agreement": float((g.argmax(1) == r.argmax(1)).mean())}
+
+
+def loftr_tp_phase(mesh, images) -> dict:
+    """Phase loftr_tp: loftr_tp_confidence at L = 1200 on test_loftr.py's
+    rendered pair against confidence_from_features (f32 and bf16), then
+    sharded_loftr_sweep over 8 encoded pairs of the slice's frames against
+    match_features_topk per pair; times against one card."""
+    dev = mesh.first
+    model = loftr_native.load_model(device=dev)
+    a, b = loftr_pair()
+    x = torch.from_numpy(np.stack([a, b])[:, None] / 255.0).float().to(dev)
+    k = SWEEP_PAIRS
+    frames = torch.from_numpy(np.stack(images[: k + 1])).to(dev)
+    rec = {"phase": "loftr_tp", **mesh_record(mesh), "cells": 1200}
+    for precision, ctx in (("f32", loftr_f32), ("bf16", contextlib.nullcontext)):
+        with ctx():
+            f = loftr_native.encode(model, x)
+            f0, f1 = f[:1], f[1:]
+            tp = lambda: parallel.loftr_tp_confidence(mesh, model, f0, f1)  # noqa: E731
+            one = lambda: loftr_native.confidence_from_features(model, f0, f1)  # noqa: E731
+            rec[precision] = conf_agreement(tp(), one())
+            rec[precision]["tp_ms"] = _mesh_ms(mesh, tp)
+            rec[precision]["one_device_ms"] = _mesh_ms(mesh, one)
+            feats = loftr_native.encode(model, loftr_matcher.to_model(frames))
+            g1, g2 = feats[:k].contiguous(), feats[1:].contiguous()
+            vals, idx = parallel.sharded_loftr_sweep(mesh, model, g1, g2, 256)
+            per = [loftr_native.match_features_topk(model, g1[i: i + 1], g2[i: i + 1], 256)
+                   for i in range(k)]
+            rec[precision]["sweep_idx_agreement"] = float(np.mean(
+                [(idx[i] == p[1][0]).float().mean().item() for i, p in enumerate(per)]))
+            rec[precision]["sweep_vals_max_abs"] = max(
+                float((vals[i] - p[0][0]).abs().max()) for i, p in enumerate(per))
+            rec[precision]["sweep_ms"] = _mesh_ms(
+                mesh, lambda: parallel.sharded_loftr_sweep(mesh, model, g1, g2, 256))
+            rec[precision]["per_pair_ms"] = _mesh_ms(mesh, lambda: [
+                loftr_native.match_features_topk(model, g1[i: i + 1], g2[i: i + 1], 256)
+                for i in range(k)])
+    _print(rec)
+    f32 = rec["f32"]
+    if not (f32["max_abs"] < MAX_TP_F32 and f32["argmax_agreement"] > MIN_TP_ARGMAX):
+        raise AssertionError(f"the tensor-parallel confidence differs in f32: {rec}")
+    if not (f32["sweep_idx_agreement"] == 1.0 and f32["sweep_vals_max_abs"] <= MAX_SWEEP_VALS_F32):
+        raise AssertionError(f"the sharded LoFTR sweep differs in f32: {rec}")
+    return rec
+
+
+def gba_world(seed: int = 0):
+    """A long synthetic sequence for the loop global BA, built as
+    tests/test_gba_sharded_pipeline.py::_build_map builds its map: GBA_KF
+    cameras on a line (K of 640x480, f = 500) over GBA_POINTS points of a
+    slab, observations with 0.3 px noise, poses (but the first) and points
+    perturbed. Returns numpy arrays: ground truth, starts and edges."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
+    pts = np.stack([rng.uniform(-3, 9, GBA_POINTS), rng.uniform(-2, 2, GBA_POINTS),
+                    rng.uniform(5, 9, GBA_POINTS)], -1).astype(np.float32)
+    T_gt = np.tile(np.eye(4, dtype=np.float32), (GBA_KF, 1, 1))
+    T_gt[:, 0, 3] = -0.05 * np.arange(GBA_KF)
+    T_gt[:, 1, 3] = 0.01 * (np.arange(GBA_KF) % 3)
+    T0 = T_gt.copy()
+    T0[1:, :3, 3] += rng.normal(0, 0.02, (GBA_KF - 1, 3)).astype(np.float32)
+    X0 = pts + rng.normal(0, 0.03, pts.shape).astype(np.float32)
+    Xc = pts[None] + T_gt[:, None, :3, 3]  # identity rotations
+    u = K[0, 0] * Xc[..., 0] / Xc[..., 2] + K[0, 2]
+    v = K[1, 1] * Xc[..., 1] / Xc[..., 2] + K[1, 2]
+    seen = (Xc[..., 2] > 0.1) & (u >= 0) & (u < 640) & (v >= 0) & (v < 480)
+    keep = seen.sum(0) >= 3  # a point seen fewer times is left out (Optimizer.cc:157-159)
+    seen, X0 = seen[:, keep], X0[keep]
+    u, v = u[:, keep], v[:, keep]
+    cam, pt = np.nonzero(seen)
+    uv = np.stack([u[cam, pt], v[cam, pt]], -1) + rng.normal(0, 0.3, (len(cam), 2))
+    return {"K": K, "T_gt": T_gt, "T0": T0, "X0": X0, "e_cam": cam, "e_pt": pt,
+            "e_uv": uv.astype(np.float32)}
+
+
+def gba_map(wd: dict):
+    """The port's Map of gba_world: keyframes chained parent to child, the
+    first the origin, every point with its observations."""
+    reset_frame_ids()
+    reset_map_ids()
+    m = map_model.Map()
+    img = np.zeros((480, 640), np.float32)
+    kfs = []
+    for i in range(GBA_KF):
+        fr = Frame(img, timestamp=i * 0.1, K=wd["K"])
+        fr.set_pose(wd["T0"][i])
+        kf = map_model.KeyFrame(fr, m, kf_db=None)
+        m.add_keyframe(kf)
+        if kfs:
+            kf.parent = kfs[-1]
+            kfs[-1].children.add(kf)
+        kfs.append(kf)
+    m.keyframe_origins.append(kfs[0])
+    order = np.argsort(wd["e_pt"], kind="stable")
+    starts = np.searchsorted(wd["e_pt"][order], np.arange(len(wd["X0"]) + 1))
+    for j in range(len(wd["X0"])):
+        es = order[starts[j]: starts[j + 1]]
+        mp = MapPoint(wd["X0"][j], kfs[0], m)
+        for e in es:
+            uv = wd["e_uv"][e]
+            mp.add_observation(kfs[wd["e_cam"][e]], (int(uv[0]), int(uv[1])),
+                               measurement=(float(uv[0]), float(uv[1])))
+        m.add_map_point(mp)
+    return m, kfs
+
+
+def run_loop_gba(dev, wd: dict, mesh) -> dict:
+    """LoopClosing.run_global_bundle_adjustment on a fresh gba_map, with
+    `mesh` handed to device_io (None: the one-card solver), the sharded
+    solver spied. Returns the poses, the staged markers and the time."""
+    m, kfs = gba_map(wd)
+    calls = []
+    real = parallel.global_bundle_adjust_sharded
+
+    def spy(mesh, p, **kw):
+        calls.append((p.cam_T.shape[0], p.e_cam.shape[0]))
+        return real(mesh, p, **kw)
+
+    params = SlamParameters(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
+    lc = loop_closing.LoopClosing(m, None, None, params, device=dev, verbose=False)
+    loop_id = kfs[-1].id
+    with mock.patch.object(device_io, "global_ba_mesh", lambda device: mesh), \
+            mock.patch.object(parallel, "global_bundle_adjust_sharded", spy):
+        t0 = time.perf_counter()
+        lc.run_global_bundle_adjustment(loop_id)
+        seconds = time.perf_counter() - t0
+    poses = np.stack([kf.get_pose() for kf in kfs])
+    return {"poses": poses, "calls": calls, "seconds": seconds,
+            "staged": all(kf.ba_global_for_kf == loop_id and kf.Tcw_bef_gba is not None
+                          for kf in kfs),
+            "ortho": float(max(np.abs(P[:3, :3] @ P[:3, :3].T - np.eye(3)).max()
+                               for P in poses)),
+            "err_before": float(np.mean([np.linalg.norm(kf.Tcw_bef_gba[:3, 3] - T[:3, 3])
+                                         for kf, T in zip(kfs, wd["T_gt"])])),
+            "err_after": float(np.mean(np.linalg.norm(poses[:, :3, 3] - wd["T_gt"][:, :3, 3],
+                                                      axis=1))),
+            "big_change": m.get_last_big_change_idx()}
+
+
+def gba_sharded_phase(mesh) -> dict:
+    """Phase gba_sharded: global_bundle_adjust_sharded against
+    global_bundle_adjust on one card on gba_world's problem, then the loop
+    GBA route through LoopClosing with the mesh handed to device_io against
+    the one-card route."""
+    dev = mesh.first
+    wd = gba_world()
+    E = len(wd["e_cam"])
+    fixed = np.zeros(GBA_KF, bool)
+    fixed[0] = True
+    p = bundle_adjust.build_problem(wd["T0"], fixed, wd["X0"], wd["e_cam"], wd["e_pt"],
+                                    wd["e_uv"], wd["K"], with_pairs=False, device=dev)
+    run_one = lambda: bundle_adjust.global_bundle_adjust(p)  # noqa: E731
+    run_sharded = lambda: parallel.global_bundle_adjust_sharded(mesh, p)  # noqa: E731
+    (T1, X1, chi1), s1 = timed_mesh(mesh, run_one)
+    (T2, X2, chi2), s2 = timed_mesh(mesh, run_sharded)
+    s3, s4 = timed_mesh(mesh, run_sharded)[1], timed_mesh(mesh, run_one)[1]
+    one_s, sharded_s = [s1, s4], [s2, s3]
+    rec = {"phase": "gba_sharded", **mesh_record(mesh), "keyframes": GBA_KF, "edges": E,
+           "points": len(wd["X0"]), "n_iters": 20, "cg_iters": 60,
+           "chi2": float(chi1), "chi2_sharded": float(chi2),
+           "chi2_rel_diff": float(abs(chi2 - chi1) / abs(chi1)),
+           "T_max_abs_diff": float((T1 - T2).abs().max()),
+           "X_max_abs_diff": float((X1 - X2).abs().max()),
+           "T_err_vs_truth": float(np.abs(T2.cpu().numpy() - wd["T_gt"]).max()),
+           "one_card_s": one_s, "sharded_s": sharded_s}
+    route = run_loop_gba(dev, wd, mesh)
+    plain = run_loop_gba(dev, wd, None)
+    rec["route"] = {"sharded_calls": route["calls"], "one_card_calls": plain["calls"],
+                    "staged": route["staged"], "max_ortho_err": route["ortho"],
+                    "pose_max_abs_diff": float(np.abs(route["poses"] - plain["poses"]).max()),
+                    "err_before": route["err_before"], "err_after": route["err_after"],
+                    "big_change": route["big_change"],
+                    "sharded_s": route["seconds"], "one_card_s": plain["seconds"]}
+    _print(rec)
+    if E < GBA_MIN_EDGES:
+        raise AssertionError(f"the GBA problem has {E} edges, fewer than {GBA_MIN_EDGES}")
+    if not (rec["chi2_rel_diff"] <= GBA_CHI2_RTOL and rec["T_max_abs_diff"] < MAX_GBA_T
+            and rec["X_max_abs_diff"] < MAX_GBA_X):
+        raise AssertionError(f"the sharded GBA differs from the one-card GBA: {rec}")
+    r = rec["route"]
+    if not (r["sharded_calls"] and r["sharded_calls"][0][0] == GBA_KF and not r["one_card_calls"]
+            and r["staged"] and r["max_ortho_err"] < 1e-4 and r["big_change"] > 0
+            and r["pose_max_abs_diff"] < MAX_GBA_ROUTE_POSE
+            and r["err_after"] < r["err_before"]):
+        raise AssertionError(f"the loop GBA route over the mesh: {rec}")
+    return rec
+
+
+def ab_sweep_sharded_phase(mesh, world, poses, images) -> dict:
+    """Phase ab_sweep_sharded: ab_sweep.main(--sharded-loftr --device cuda)
+    over run_cli's 42 PNG frames with the phase's mesh (41 pairs, padded to
+    a mesh multiple): pairs/s, matches, and each pair's count against
+    per-pair matching of the same encoded frames."""
+    dev = mesh.first
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_tum_sequence(root, world, poses, images)
+        seen = []
+        real = parallel.sharded_loftr_sweep
+
+        def spy(mesh_, model, f1, f2, max_matches):
+            out = real(mesh_, model, f1, f2, max_matches)
+            seen.append((out[0], model, f1, f2))
+            return out
+
+        buf = io.StringIO()
+        with mock.patch.object(parallel, "make_mesh", lambda *a, **k: mesh), \
+                mock.patch.object(parallel, "sharded_loftr_sweep", spy), \
+                contextlib.redirect_stdout(buf):
+            results = ab_sweep.main(cli_argv(root, world, SYSTEM_FULL, dev.type, "--matchers",
+                                             "", "--sharded-loftr"))
+    res = results[-1]
+    vals, model, f1, f2 = seen[0]
+    n = res["pairs"]
+    counts = (vals > LOFTR_THRESHOLD).sum(1)[:n].tolist()
+    per = [int((loftr_native.match_features_topk(model, f1[i: i + 1], f2[i: i + 1], 256)[0]
+                > LOFTR_THRESHOLD).sum()) for i in range(n)]
+    rec = {"phase": "ab_sweep_sharded", **mesh_record(mesh), **res,
+           "padded_pairs": int(vals.shape[0]), "counts_equal_per_pair": counts == per,
+           "count_max_abs_diff": int(np.abs(np.array(counts) - np.array(per)).max()),
+           "printed": json.loads(buf.getvalue())["sweep"][-1]["matcher"]}
+    _print(rec)
+    if not (res["matcher"] == "loftr-sharded" and n == len(images) - 1
+            and rec["padded_pairs"] % mesh.size == 0 and res["min_matches"] > 0
+            and rec["count_max_abs_diff"] == 0):
+        raise AssertionError(f"ab_sweep --sharded-loftr: {rec}")
+    return rec
+
+
+MESH_PHASES = ("mesh", "sharded_steady", "sharded_loftr_steady", "sharded_sweep", "loftr_tp",
+               "gba_sharded", "ab_sweep_sharded")
+
+
+def multi_device_phases(mesh, ms: dict, images, world_s, poses_s, images_s,
+                        names=MESH_PHASES) -> dict:
+    """The multi-device phases `names` (see the module docstring) over `mesh`,
+    in MESH_PHASES' order. Returns the sharded paths' B1 / B2 launches and
+    each phase's seconds."""
+    run = {
+        "mesh": lambda: mesh_phase(mesh),
+        "sharded_steady": lambda: sharded_steady_phase(mesh, ms),
+        "sharded_loftr_steady": lambda: sharded_loftr_steady_phase(mesh, ms),
+        "sharded_sweep": lambda: sharded_sweep_phase(mesh, images),
+        "loftr_tp": lambda: loftr_tp_phase(mesh, images),
+        "gba_sharded": lambda: gba_sharded_phase(smoke_mesh(axis="edges")),
+        "ab_sweep_sharded": lambda: ab_sweep_sharded_phase(mesh, world_s, poses_s, images_s),
+    }
+    launches = collections.Counter()
+    seconds = {}
+    for name in MESH_PHASES:
+        if name in names:
+            t0 = time.perf_counter()
+            rec = run[name]()
+            seconds[name] = time.perf_counter() - t0
+            launches.update(rec.get("launches", {}))  # the sharded steps' and sweeps'
+    return {"b1_batch": launches["b1_batch"], "b2": launches["b2"], "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
@@ -3038,10 +3690,14 @@ def main() -> int:
     _print(b1_batch)
     b2_batch = check_b2_batch(dev, MULTI_STREAMS)
     _print(b2_batch)
-    multi = multistream_phase(dev)
+    ms = multistream_setup(dev)
+    multi = multistream_phase(dev, ms)
     serve_launches = server_phases(dev)
     batch_b1 = multi["launches"]["b1_batch"] + serve_launches["b1_batch"]
     batch_b2 = multi["launches"]["b2"] + serve_launches["b2"]
+
+    # ---- the multi-device layer over a mesh: B1 and B2 on every shard ----
+    sharded = multi_device_phases(smoke_mesh(), ms, images, world_s, poses_s, images_s)
 
     b1_stack_bound = b1_bound(dims, stacked=True)
     banded_bound = b1_bound(banded_dims, stacked=False)
@@ -3053,7 +3709,9 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
          "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"] + loop_launches["b1"]
-         + loftr_launches["b1"] + app_launches["b1"] + serve_launches["b1"] + batch_b1,
+         + loftr_launches["b1"] + app_launches["b1"] + serve_launches["b1"] + batch_b1
+         + sharded["b1_batch"],
+         "sharded_launches": sharded["b1_batch"],
          "max_abs_err": max(b1["max_abs_err"].values()),
          "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_stack_bound[0],
@@ -3068,7 +3726,7 @@ def main() -> int:
         {"name": "detect_level (B1-banded: 8 one-level launches, 640x480)", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:215",
-         "launches": per_level_launches["banded"],
+         "launches": per_level_launches["banded"], "sharded_launches": 0,
          "max_abs_err": max(lvl_full["max_abs_err"].values()),
          "ms": banded_ms, "wrapper_ms": banded_wrapper_ms, "plain_ms": banded_plain_ms,
          "bound_ms": banded_bound[0],
@@ -3076,7 +3734,7 @@ def main() -> int:
         {"name": "detect_level (B1-full: levels 5-7, 240x320)", "route": "cuda",
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:202",
-         "launches": per_level_launches["full"],
+         "launches": per_level_launches["full"], "sharded_launches": 0,
          "max_abs_err": max(lvl_small["max_abs_err"].values()),
          "ms": full_ms, "wrapper_ms": full_wrapper_ms, "plain_ms": full_plain_ms,
          "bound_ms": full_bound[0],
@@ -3085,7 +3743,8 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
          "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"] + loop_launches["b2"]
-         + loftr_launches["b2"] + app_launches["b2"] + batch_b2,
+         + loftr_launches["b2"] + app_launches["b2"] + batch_b2 + sharded["b2"],
+         "sharded_launches": sharded["b2"],
          "app_launches": app_launches["b2"],
          "multistream_launches": multi["launches"]["b2"], "server_launches": serve_launches["b2"],
          "batch_problems_ms": multi["b2_batch_bare_ms"],

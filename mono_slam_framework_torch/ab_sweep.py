@@ -8,13 +8,13 @@ sequence through each requested matcher and reports per-matcher tracking
 statistics, timing, and (with ground truth) ATE. Every arm runs on
 `--device` (default `cuda`). As in the JAX harness, `--fused` and
 `--fused-one-step` apply to the ORB arm only; the other arms run the
-reference-twin flow. The JAX harness's `--sharded-loftr` (a LoFTR sweep
-over a device mesh) waits for the port's multi-device layer.
+reference-twin flow. `--sharded-loftr` adds the JAX harness's LoFTR sweep
+over a device mesh (`run_sharded_loftr`).
 
 Usage:
   python -m mono_slam_framework_torch.ab_sweep --dataset tum --path <seq> \
       --fx .. --fy .. --cx .. --cy .. [--matchers orb,loftr] [--ate] \
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--sharded-loftr]
 """
 
 from __future__ import annotations
@@ -83,6 +83,53 @@ def run_one(matcher_name: str, args) -> dict:
     return result
 
 
+def run_sharded_loftr(args) -> dict:
+    """Mesh-sharded LoFTR pairwise sweep over the sequence: encode every
+    frame once (the cacheable backbone), then match all consecutive pairs
+    data-parallel over the device mesh (`parallel.sharded_loftr_sweep`).
+    Reports per-pair match counts and throughput rather than tracking (the
+    tracking A/B is `run_one`). The mesh is every visible card for
+    `--device cuda`, else the one device named."""
+    import numpy as np
+    import torch
+
+    from mono_slam_framework_torch import device as device_mod
+    from mono_slam_framework_torch import parallel
+    from mono_slam_framework_torch.io.datasets import LOADERS
+    from mono_slam_framework_torch.matchers.loftr_matcher import to_model
+    from mono_slam_framework_torch.models import loftr_native
+
+    dev = device_mod.resolve(args.device)
+    model = loftr_native.load_model(args.loftr_model, device=dev)
+    images = []
+    for frame in LOADERS[args.dataset](args.path):
+        images.append(np.asarray(frame.image, np.float32))
+        if args.max_frames and len(images) >= args.max_frames:
+            break
+
+    t0 = time.perf_counter()
+    feats = [loftr_native.encode(model, to_model(torch.from_numpy(img).to(dev)))[0]
+             for img in images]
+    mesh = parallel.make_mesh() if dev == torch.device("cuda") else parallel.make_mesh(
+        devices=[dev])
+    n_pairs = len(feats) - 1
+    ndev = mesh.size
+    cap = -(-n_pairs // ndev) * ndev  # pad the batch to a mesh multiple
+    f1 = torch.stack([feats[min(i, n_pairs - 1)] for i in range(cap)])
+    f2 = torch.stack([feats[min(i + 1, n_pairs)] for i in range(cap)])
+    vals, _ = parallel.sharded_loftr_sweep(mesh, model, f1, f2, max_matches=256)
+    counts = (vals > args.loftr_threshold).sum(dim=1)[:n_pairs].cpu().numpy()
+    wall = time.perf_counter() - t0
+    return {
+        "matcher": "loftr-sharded",
+        "devices": int(ndev),
+        "pairs": int(n_pairs),
+        "pairs_per_s": round(n_pairs / wall, 2),
+        "mean_matches": round(float(counts.mean()), 1),
+        "min_matches": int(counts.min()),
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dataset", choices=["tum", "kitti", "euroc"], required=True)
@@ -109,6 +156,12 @@ def main(argv=None):
     p.add_argument("--ate", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="device of every arm's matcher and System (cuda or cpu)")
+    p.add_argument(
+        "--sharded-loftr",
+        action="store_true",
+        help="also run the mesh-sharded LoFTR pairwise sweep "
+        "(parallel/sweep.py; over every card with --device cuda)",
+    )
     args = p.parse_args(argv)
 
     if None in (args.fx, args.fy, args.cx, args.cy):
@@ -117,6 +170,8 @@ def main(argv=None):
         fill_calibration(args)
 
     results = [run_one(m.strip(), args) for m in args.matchers.split(",") if m.strip()]
+    if args.sharded_loftr:
+        results.append(run_sharded_loftr(args))
     print(json.dumps({"sweep": results}, indent=2))
     return results
 

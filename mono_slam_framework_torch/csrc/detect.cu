@@ -60,6 +60,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int TH = 32;  // output tile rows
@@ -427,6 +429,23 @@ detect_kernel(const float* __restrict__ img, float* __restrict__ out,
   }
 }
 
+// A kernel's dynamic shared-memory limit is a per-device attribute: raise it
+// once on each device a launch meets (the current one), never once per
+// process, which would leave every other card at the 48 KB default.
+constexpr int MAX_DEVICES = 64;
+
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, int bytes, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 }  // namespace
 
 // img [n_streams, rows, w0] f32 level stacks; out [5, n_streams, rows, w0]
@@ -438,8 +457,8 @@ extern "C" int detect_maps_batch_launch(const float* img, float* out, const int*
                                         int n_levels, int grid_x, int grid_y, int n_streams,
                                         int rows, int w0, float threshold, int border,
                                         void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  static std::atomic<bool> smem_raised[MAX_DEVICES];
+  const cudaError_t attr = raise_smem_limit(detect_kernel, SMEM_BYTES, smem_raised);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n_levels > 0 && grid_x > 0 && grid_y > 0 && n_streams > 0) {
     const size_t stack = static_cast<size_t>(rows) * w0;

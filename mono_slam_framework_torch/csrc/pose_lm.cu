@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -619,12 +621,29 @@ pose_lm_kernel(const float* __restrict__ xw, const float* __restrict__ uv,
   }
 }
 
+// A kernel's dynamic shared-memory limit is a per-device attribute: raise it
+// once on each device a launch meets (the current one), never once per
+// process, which would leave every other card at the 48 KB default.
+constexpr int MAX_DEVICES = 64;
+
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, int bytes, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 template <int C>
 int launch(const float* xw, const float* uv, const uint8_t* valid, const float* info,
            const float* K, const float* t_init, float* t_out, uint8_t* inlier, int* n_good,
            int B, int E, int slice, int n_res, int smem, cudaStream_t stream) {
-  static cudaError_t attr = cudaFuncSetAttribute(
-      pose_lm_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  static std::atomic<bool> smem_raised[MAX_DEVICES];
+  const cudaError_t attr = raise_smem_limit(pose_lm_kernel<C>, MAX_SMEM, smem_raised);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, B, 1);

@@ -189,10 +189,12 @@ def _launch(stacks, dims, threshold, border):
     _, rows, w0 = level_layout(dims)
     (gx, gy), table = tile_plan(dims).grid, _device_table(dims, stacks.device)
     out = torch.empty((5, n, rows, w0), dtype=torch.float32, device=stacks.device)
-    err = _kernels.load().detect_maps_batch_launch(
-        stacks.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, n, rows, w0,
-        float(threshold), int(border), _kernels.stream_ptr(stacks.device),
-    )
+    # the runtime launches on its current device: make it the tensors' one
+    with torch.cuda.device(stacks.device):
+        err = _kernels.load().detect_maps_batch_launch(
+            stacks.data_ptr(), out.data_ptr(), table.data_ptr(), len(dims), gx, gy, n, rows,
+            w0, float(threshold), int(border), _kernels.stream_ptr(stacks.device),
+        )
     _kernels.check(err, "detect_maps_batch_launch")
     return DetectMaps(*out.unbind(0))
 

@@ -23,7 +23,8 @@ loop uses the Nielsen policy of `optim/lm.py`; rejected steps roll back by
 `torch.where`, so an iteration never waits on the device.
 
 BA has no Pallas kernel in the JAX package; this is plain PyTorch on the
-device of the problem's tensors.
+device of the problem's tensors. `_lm_iterations` also runs edge-sharded
+over a device mesh (`parallel/ba_sharded.py`).
 """
 
 from __future__ import annotations
@@ -193,9 +194,18 @@ def _pcg_schur(matvec, prec, rhs, n_iters):
     return x
 
 
+def _edge_shards(p: BAProblem, edge_mask, mesh):
+    """The edge arrays of p and the mask cut into the mesh's shards, shard i
+    on device i (with K, the one replicated input its edge terms read)."""
+    edges = [mesh.split(x) for x in (p.e_cam, p.e_pt, p.e_uv, p.e_valid, p.e_info)]
+    shards = [p._replace(e_cam=c, e_pt=q, e_uv=u, e_valid=v, e_info=f, K=k)
+              for c, q, u, v, f, k in zip(*edges, mesh.broadcast(p.K))]
+    return shards, mesh.split(edge_mask)
+
+
 def _lm_iterations(
     cam_T, X, p: BAProblem, edge_mask, use_huber: bool, n_iters: int,
-    solver: str = "dense", cg_iters: int = 60,
+    solver: str = "dense", cg_iters: int = 60, mesh=None,
 ):
     """Run `n_iters` LM iterations on the masked problem.
 
@@ -205,56 +215,84 @@ def _lm_iterations(
     O(E) scatters; block-Jacobi preconditioner from the self-pair Schur
     diagonal) — no pair list, no [6C,6C] system; the global-BA path for
     hundreds of keyframes.
+
+    `mesh` (a `parallel.mesh.Mesh`, cg only) is the port's form of the JAX
+    `reduce=` hook: the edges are cut into the mesh's shards and every piece
+    of edge work (edge terms, segment sums, the PCG matvec's scatters) runs
+    per shard on its device; each edge->global sum is `mesh.reduce_sum` of
+    the shards' partials on the mesh's first device, where the replicated
+    camera and point math (the [C,6,6] / [P,3,3] blocks, the PCG scalars,
+    the LM accept test) runs once and is copied to the shards. Without a
+    mesh the one shard is p itself and a reduction is its one partial, so
+    the single-device path runs exactly the operations it always ran.
     """
     dtype = cam_T.dtype
     dev = cam_T.device
     C = cam_T.shape[0]
     P = X.shape[0]
     free = (~p.cam_fixed).to(dtype)  # [C]
-    by_cam, by_pt = _segments(p.e_cam, C), _segments(p.e_pt, P)
+    if mesh is None:
+        shards, masks = [p], [edge_mask]
+        reduce, bcast = (lambda parts: parts[0]), (lambda x: [x])
+    else:
+        if solver != "cg":
+            raise ValueError("the edge-sharded BA runs the cg solver only")
+        shards, masks = _edge_shards(p, edge_mask, mesh)
+        reduce, bcast = mesh.reduce_sum, mesh.broadcast
+    by_cam = [_segments(s.e_cam, C) for s in shards]
+    by_pt = [_segments(s.e_pt, P) for s in shards]
     if solver == "dense":  # the Schur blocks S[ci, cj] by camera pair
         by_pair = _segments(p.e_cam[p.pair_i] * C + p.e_cam[p.pair_j], C * C)
     I6 = torch.eye(6, dtype=dtype, device=dev)
     I3 = torch.eye(3, dtype=dtype, device=dev)
 
+    def terms(T, Xp):
+        """_edge_terms of every shard at the replicated state (T, Xp)."""
+        return [_edge_terms(t, x, s, m, use_huber)
+                for t, x, s, m in zip(bcast(T), bcast(Xp), shards, masks)]
+
+    def seg_sum(parts, segs):
+        """Each shard's partial segment sums, reduced onto the first device."""
+        return reduce([_segment_sum(x, g) for x, g in zip(parts, segs)])
+
     def chi2_of(T, Xp):
-        _, e2, _, _, _, _ = _edge_terms(T, Xp, p, edge_mask, use_huber)
-        return torch.sum(lm.huber_rho(e2, use_huber) * edge_mask)
+        return reduce([torch.sum(lm.huber_rho(t[1], use_huber) * m)
+                       for t, m in zip(terms(T, Xp), masks)])
 
     def hessian_diag_max(T, Xp):
-        _, _, w, Jc, Jp, _ = _edge_terms(T, Xp, p, edge_mask, use_huber)
-        du = torch.sum(Jc * Jc, dim=1) * w[:, None]  # [E,6] diag contributions
-        dv = torch.sum(Jp * Jp, dim=1) * w[:, None]
-        return torch.maximum(
-            torch.max(_segment_sum(du, by_cam)), torch.max(_segment_sum(dv, by_pt))
-        )
+        tt = terms(T, Xp)
+        du = [torch.sum(Jc * Jc, dim=1) * w[:, None] for _, _, w, Jc, _, _ in tt]  # [E,6]
+        dv = [torch.sum(Jp * Jp, dim=1) * w[:, None] for _, _, w, _, Jp, _ in tt]
+        return torch.maximum(torch.max(seg_sum(du, by_cam)), torch.max(seg_sum(dv, by_pt)))
 
     lam = lm.TAU * hessian_diag_max(cam_T, X)
     chi = chi2_of(cam_T, X)
     nu = torch.full_like(chi, 2.0)
     T, Xp = cam_T, X
     for _ in range(n_iters):
-        r, e2, w, Jc, Jp, _ = _edge_terms(T, Xp, p, edge_mask, use_huber)
+        tt = terms(T, Xp)
         # the IRLS weight folded into one side: J^T W J as two-operand products
-        wJc = Jc * w[:, None, None]
-        wJp = Jp * w[:, None, None]
-        U = _segment_sum(wJc.transpose(1, 2) @ Jc, by_cam)  # [C,6,6]
-        V = _segment_sum(wJp.transpose(1, 2) @ Jp, by_pt)  # [P,3,3]
-        W = wJc.transpose(1, 2) @ Jp  # [E,6,3] (edge-local)
-        bc = _segment_sum((wJc.transpose(1, 2) @ r[..., None])[..., 0], by_cam)
-        bp = _segment_sum((wJp.transpose(1, 2) @ r[..., None])[..., 0], by_pt)
+        wJc = [Jc * w[:, None, None] for _, _, w, Jc, _, _ in tt]
+        wJp = [Jp * w[:, None, None] for _, _, w, _, Jp, _ in tt]
+        U = seg_sum([a.transpose(1, 2) @ t[3] for a, t in zip(wJc, tt)], by_cam)  # [C,6,6]
+        V = seg_sum([a.transpose(1, 2) @ t[4] for a, t in zip(wJp, tt)], by_pt)  # [P,3,3]
+        W = [a.transpose(1, 2) @ t[4] for a, t in zip(wJc, tt)]  # [E,6,3] (edge-local)
+        bc = seg_sum([(a.transpose(1, 2) @ t[0][..., None])[..., 0]
+                      for a, t in zip(wJc, tt)], by_cam)
+        bp = seg_sum([(a.transpose(1, 2) @ t[0][..., None])[..., 0]
+                      for a, t in zip(wJp, tt)], by_pt)
 
         U = U + lam * I6
         Vinv = _inv3x3(V + lam * I3)
-        Y = W @ Vinv[p.e_pt]  # [E,6,3]
+        Y = [w_ @ vi[s.e_pt] for w_, vi, s in zip(W, bcast(Vinv), shards)]  # [E,6,3]
 
         # reduced rhs = -(bc - sum_e Y_e bp[pt_e]) per camera
-        ybp = (Y @ bp[p.e_pt][..., None])[..., 0]
-        red = bc - _segment_sum(ybp, by_cam)  # [C,6]
+        ybp = [(y @ b[s.e_pt][..., None])[..., 0] for y, b, s in zip(Y, bcast(bp), shards)]
+        red = bc - seg_sum(ybp, by_cam)  # [C,6]
 
         if solver == "dense":
             # Schur assembly: S[ci,cj] -= sum over pairs Y_i W_j^T
-            contrib = Y[p.pair_i] @ W[p.pair_j].transpose(-1, -2)
+            contrib = Y[0][p.pair_i] @ W[0][p.pair_j].transpose(-1, -2)
             contrib = contrib * p.pair_valid.to(dtype)[:, None, None]
             S = -_segment_sum(contrib, by_pair).reshape(C, C, 6, 6)
             S[torch.arange(C, device=dev), torch.arange(C, device=dev)] += U
@@ -278,15 +316,17 @@ def _lm_iterations(
             def matvec(x, U=U, W=W, Vinv=Vinv):
                 # S x = U x - W V^-1 W^T x; fixed-camera rows act as identity
                 ux = (U @ x[..., None])[..., 0]
-                wx = (W.transpose(-1, -2) @ x[p.e_cam][..., None])[..., 0]  # [E,3]
-                vp = (Vinv @ _segment_sum(wx, by_pt)[..., None])[..., 0]
-                back = (W @ vp[p.e_pt][..., None])[..., 0]  # [E,6]
-                out = ux - _segment_sum(back, by_cam)
+                wx = [(w_.transpose(-1, -2) @ xs[s.e_cam][..., None])[..., 0]  # [E,3]
+                      for w_, xs, s in zip(W, bcast(x), shards)]
+                vp = (Vinv @ seg_sum(wx, by_pt)[..., None])[..., 0]
+                back = [(w_ @ v[s.e_pt][..., None])[..., 0]  # [E,6]
+                        for w_, v, s in zip(W, bcast(vp), shards)]
+                out = ux - seg_sum(back, by_cam)
                 return out * free[:, None] + x * (1.0 - free)[:, None]
 
             # block-Jacobi preconditioner from the self-pair Schur diagonal
             # S_cc ~ U_c - sum_{e in c} Y_e W_e^T
-            diag_sub = _segment_sum(Y @ W.transpose(-1, -2), by_cam)
+            diag_sub = seg_sum([y @ w_.transpose(-1, -2) for y, w_ in zip(Y, W)], by_cam)
             Sd = U - diag_sub + 1e-6 * I6
             Sd = torch.where(p.cam_fixed[:, None, None], I6, Sd)
             Sd_inv = torch.linalg.inv_ex(Sd)[0]
@@ -297,8 +337,9 @@ def _lm_iterations(
             dc = _pcg_schur(matvec, prec, rhs_c, cg_iters) * free[:, None]
 
         # landmark back-substitution: dp = -Vinv (bp + W^T dc)
-        wt_dc = (W.transpose(-1, -2) @ dc[p.e_cam][..., None])[..., 0]  # [E,3]
-        dp = -(Vinv @ (bp + _segment_sum(wt_dc, by_pt))[..., None])[..., 0]
+        wt_dc = [(w_.transpose(-1, -2) @ d_[s.e_cam][..., None])[..., 0]  # [E,3]
+                 for w_, d_, s in zip(W, bcast(dc), shards)]
+        dp = -(Vinv @ (bp + seg_sum(wt_dc, by_pt))[..., None])[..., 0]
 
         T_new = se3.exp_se3(dc) @ T
         X_new = Xp + dp

@@ -91,12 +91,14 @@ def _launch(T_init, Xw, uv, valid, K, info, B, E, cluster):
     T_out = torch.empty((*lead, 4, 4), dtype=f32, device=dev)
     inlier = torch.empty((*lead, E), dtype=torch.bool, device=dev)
     n_good = torch.empty(lead, dtype=torch.int32, device=dev)
-    err = _kernels.load().pose_lm_launch(
-        Xw.data_ptr(), uv.data_ptr(), valid.data_ptr(),
-        None if info is None else info.data_ptr(), K.data_ptr(), T_init.data_ptr(),
-        T_out.data_ptr(), inlier.data_ptr(), n_good.data_ptr(), B, E,
-        plan.cluster, plan.slice, plan.resident, plan.smem, _kernels.stream_ptr(dev),
-    )
+    # the runtime launches on its current device: make it the tensors' one
+    with torch.cuda.device(dev):
+        err = _kernels.load().pose_lm_launch(
+            Xw.data_ptr(), uv.data_ptr(), valid.data_ptr(),
+            None if info is None else info.data_ptr(), K.data_ptr(), T_init.data_ptr(),
+            T_out.data_ptr(), inlier.data_ptr(), n_good.data_ptr(), B, E,
+            plan.cluster, plan.slice, plan.resident, plan.smem, _kernels.stream_ptr(dev),
+        )
     _kernels.check(err, "pose_lm_launch")
     pose_lm_batched.launches += 1
     return T_out, inlier, n_good

@@ -24,9 +24,15 @@ products (cuDNN, cuBLAS) may round otherwise than one stream's, so a LoFTR
 stream agrees with its one-stream step to float tolerance. Every call runs on
 the device of its tensors.
 
-The mesh-sharded forms of the JAX package (`steady_step_batch_sharded`,
-`steady_step_loftr_batch_sharded`) are not here: they need more than one
-card.
+Beyond one card, `steady_step_batch_sharded` and
+`steady_step_loftr_batch_sharded` cut the stream axis over a mesh
+(`parallel/mesh.py`): each shard is
+one `steady_step_batch` / `steady_step_loftr_batch` on its device over its
+N/D streams, with no collective in the steady loop (streams are
+independent; LoFTR weights and the coarse-cell grid are replicated once per
+call), and the results are gathered on the mesh's first device. Every
+shard's work is issued before anything waits, so shards on different cards
+overlap.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from mono_slam_framework_torch.matchers import loftr_matcher as lm
 from mono_slam_framework_torch.models import loftr_native
 from mono_slam_framework_torch.ops import detect, orb
+from mono_slam_framework_torch.parallel import mesh as mesh_mod
 from mono_slam_framework_torch.slam import fused_loftr, fused_tracking
 
 
@@ -126,3 +133,48 @@ def steady_step_loftr_batch(
         info_val, threshold, width, height,
     )
     return f_cur, out, union_row, T2
+
+
+# ---- serving beyond one card: streams cut over a device mesh ---------------
+
+
+def _shard_args(mesh, args, replicated=()) -> list:
+    """Per-shard argument lists: tensors (and NamedTuples of tensors) cut on
+    axis 0 over the mesh, the tensors at the positions `replicated` copied to
+    every shard, other values passed as they are."""
+    cols = []
+    for i, a in enumerate(args):
+        if torch.is_tensor(a) and i in replicated:
+            cols.append(mesh.broadcast(a))
+        elif torch.is_tensor(a) or mesh_mod.is_namedtuple(a):
+            cols.append(mesh.split(a))
+        else:
+            cols.append([a] * mesh.size)
+    return [list(x) for x in zip(*cols)]
+
+
+def steady_step_batch_sharded(mesh, *args, **statics) -> fused_tracking.SteadyOut:
+    """`steady_step_batch` with the stream axis cut over `mesh`.
+
+    Every tensor argument carries streams on axis 0 (per-stream intrinsics
+    included), so the whole argument list splits one way and the steady
+    loop runs with no collective: D devices serve D x one device's batch.
+    N must be divisible by the mesh size (ValueError otherwise). Returns the
+    batch's SteadyOut on the mesh's first device."""
+    parts = [steady_step_batch(*a, **statics) for a in _shard_args(mesh, args)]
+    return mesh.gather(parts)
+
+
+# cell_uv and info_val among the arguments after (imgs, model): shared
+_LOFTR_REPLICATED = (9, 11)
+
+
+def steady_step_loftr_batch_sharded(mesh, imgs, model, *args, **statics):
+    """`steady_step_loftr_batch` cut over `mesh`: stream tensors split on
+    axis 0, the LoFTR model (a replica per device), `cell_uv` and
+    `info_val` replicated. Argument order matches `steady_step_loftr_batch`.
+    Returns its (f_cur, LoftrOut, union_row, T2) on the first device."""
+    parts = [steady_step_loftr_batch(i, m, *a, **statics)
+             for i, m, a in zip(mesh.split(imgs), mesh.replicate(model),
+                                _shard_args(mesh, args, _LOFTR_REPLICATED))]
+    return tuple(mesh.gather(list(x)) for x in zip(*parts))

@@ -154,12 +154,24 @@ def run_local_ba(current_kf, map_, device) -> None:
             mp.update_normal_and_depth()
 
 
+def global_ba_mesh(device):
+    """The mesh the global BA shards its edges over, or None for one device:
+    every visible card when `device` is a card and there is more than one
+    (the JAX package's `len(jax.devices()) > 1`)."""
+    if torch.device(device).type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    from mono_slam_framework_torch import parallel
+
+    return parallel.make_ba_mesh()
+
+
 def run_global_ba(
     map_, n_iters: int, device, robust: bool = True, loop_kf: int = 0,
     cg_iters: int = 60,
 ) -> None:
     """Full-map BA (Optimizer::BundleAdjustment, 71-215): dense Schur up to
-    GLOBAL_BA_DENSE_MAX_CAMS cameras, matrix-free PCG above.
+    GLOBAL_BA_DENSE_MAX_CAMS cameras, matrix-free PCG above, edge-sharded
+    over `global_ba_mesh(device)` when that gives a mesh.
 
     loop_kf == 0 applies results directly; otherwise results are staged in
     kf.Tcw_gba / mp.pos_gba like the reference (186-213).
@@ -197,8 +209,17 @@ def run_global_ba(
         e_cam, e_pt, e_uv, kfs[0].K, e_info=e_info, with_pairs=use_dense,
         device=device,
     )
+    mesh = None if use_dense else global_ba_mesh(device)
     if use_dense:
         T_out, X_out, _ = ba.bundle_adjust(p, n_iters=n_iters, robust=robust)
+    elif mesh is not None:
+        # several cards: the edge set cut over the mesh, the camera and point
+        # reductions summed on its first card (parallel/ba_sharded.py)
+        from mono_slam_framework_torch import parallel
+
+        T_out, X_out, _ = parallel.global_bundle_adjust_sharded(
+            mesh, p, n_iters=n_iters, robust=robust, cg_iters=cg_iters
+        )
     else:
         T_out, X_out, _ = ba.global_bundle_adjust(
             p, n_iters=n_iters, robust=robust, cg_iters=cg_iters

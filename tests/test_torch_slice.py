@@ -224,4 +224,7 @@ def test_port_imports_without_jax():
     # multi-stream serving
     for m in ("parallel.multistream", "parallel.server"):
         assert prefix + m in mods, m
-    assert len(mods) >= 36 and len(tools) >= 3
+    # the multi-device layer
+    for m in ("parallel.mesh", "parallel.sweep", "parallel.ba_sharded", "parallel.loftr_tp"):
+        assert prefix + m in mods, m
+    assert len(mods) >= 40 and len(tools) >= 3
