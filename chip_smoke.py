@@ -69,6 +69,26 @@ line and raises if it fails:
                 (the tracker calls it on every OK frame) is reported here and
                 in every System phase; system_fused's map goes through a
                 checkpoint round trip (phase checkpoint).
+ 13a. startup — the first events of a fresh process, with the background
+                warm (utils/prewarm.py) on and off: this script re-run as
+                `--startup-child on|off` four times (on, off, on, off), each
+                a new process that drives PERF.md §2's world at step 0.06
+                (initialization, 3 keyframe events, 2 flat frames and the
+                relocalization, then the surgical loop with pre-alignment),
+                the last two a second round as well: System construction,
+                the warm's drain, the first frame, the initialization frame,
+                each keyframe event, the first relocalization, the
+                correction's essential graph and total ms, the steady p50
+                while the warm runs and after it, warm failures and each
+                warm's ms, the linear-algebra backend, whether
+                torch._dynamo was imported; the last "off" child times the
+                cold graph solve's parts (`--breakdown`: the first Jacobian,
+                the first linalg.solve, the rest). Then, here, B1 on the
+                phase's first frame and B2 on the first child's first pose
+                problem against their plain versions. Fails on a warm
+                failure, on pose checksums that differ between "on" and
+                "off", on a round without B1 / B2 launches, or on a kernel
+                check;
  14. loftr_model — the LoFTR coarse model on the card at 480x640 on
                 tests/test_loftr.py's rendered pair: the f32 confidence
                 against the CPU's (< 1e-5, argmax > 0.999), the card's bf16
@@ -192,9 +212,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import functools
+import gc
 import io
 import json
+import os
 import pathlib
 import re
 import struct
@@ -240,6 +263,7 @@ from mono_slam_framework_torch.slam import system as system_mod  # noqa: E402
 from mono_slam_framework_torch.slam.frame import Frame, reset_frame_ids  # noqa: E402
 from mono_slam_framework_torch.slam.map_model import MapPoint, reset_map_ids  # noqa: E402
 from mono_slam_framework_torch.utils import AsyncSlamDriver  # noqa: E402
+from mono_slam_framework_torch.utils import prewarm  # noqa: E402
 
 RATIO = 0.7
 FAST_THRESHOLD = 20.0
@@ -935,24 +959,25 @@ LOFTR_MIN_INI_MATCHES = 60
 
 
 def build_system(device, cfg: SystemConfig, world, flow: str = "unfused",
-                 matcher: str = "orb") -> System:
+                 matcher: str = "orb", **params) -> System:
     """bench.py's System on `device`, in one of FLOWS (default: the
     reference-twin flow, fusedTracking=False), with the ORB matcher or
-    (matcher="loftr") test_loftr_pipeline.py's coarse LoFTR configuration."""
+    (matcher="loftr") test_loftr_pipeline.py's coarse LoFTR configuration;
+    `params` override SlamParameters fields."""
     reset_frame_ids()
     reset_map_ids()
     if matcher == "loftr":
         params = SlamParameters(
             fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
             minIniMatchCount=LOFTR_MIN_INI_MATCHES, initializerModelFallback=True,
-            **FLOWS[flow],
+            **FLOWS[flow], **params,
         )
         m = LoftrFeatureMatcher(threshold=LOFTR_THRESHOLD, fine=False, device=device)
     else:
         params = SlamParameters(
             fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
             max_features=cfg.max_features, minIniMatchCount=100,
-            initializerModelFallback=True, **FLOWS[flow],
+            initializerModelFallback=True, **FLOWS[flow], **params,
         )
         m = OrbFeatureMatcher(threshold=RATIO, max_features=cfg.max_features, device=device)
     return System(params, m, KeyFrameMatchDatabase(m), verbose=False, device=device)
@@ -1459,18 +1484,21 @@ SURGICAL_FRAMES = 16
 SURGICAL_DRIFT = (0.04, -0.03, 0.02)
 
 
-def surgical_loop_setup(device, max_features: int, prealign: bool, drift=None) -> dict:
+def surgical_loop_setup(device, max_features: int, prealign: bool, drift=None,
+                        **extra) -> dict:
     """Drive test_reloc_loop.py's 16-frame lateral sequence, then build the
     revisit keyframe at keyframe 0's viewpoint with a duplicate map point for
     every match to one of keyframe 0's points; with `drift` (a world
-    translation) the duplicates and the revisit pose are shifted by it."""
+    translation) the duplicates and the revisit pose are shifted by it;
+    `extra` overrides SlamParameters fields."""
     world = sim.PlaneWorld(second_plane=(3.0, 0.3))
     poses = sim.lateral_trajectory(SURGICAL_FRAMES, step=0.07)
     reset_frame_ids()
     reset_map_ids()
     params = SlamParameters(fx=world.f, fy=world.f, cx=world.cx, cy=world.cy,
                             max_features=max_features, minIniMatchCount=100,
-                            initializerModelFallback=True, loopPrealignSim3=prealign)
+                            initializerModelFallback=True, loopPrealignSim3=prealign,
+                            **extra)
     matcher = OrbFeatureMatcher(threshold=RATIO, max_features=max_features, device=device)
     system = System(params, matcher, KeyFrameMatchDatabase(matcher), verbose=False,
                     device=device)
@@ -1988,8 +2016,16 @@ def check_quality_loftr(rec: dict) -> None:
         raise AssertionError(f"LoFTR quality keyframe poses: {rec}")
 
 
+# where --log copies every printed record (JSON lines)
+RECORD_LOG: list = []
+
+
 def _print(rec):
-    print(json.dumps(rec), flush=True)
+    line = json.dumps(rec)
+    print(line, flush=True)
+    for path in RECORD_LOG:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2088,6 +2124,287 @@ def reloc_loop_phase(dev, cfg: LoopConfig) -> dict:
             "surgical": surgical})
     check_loop_drive(run, kernels=dev.type == "cuda")
     return run["launches"]
+
+
+# ---------------------------------------------------------------------------
+# start-up: the first events of a fresh process, with the background warm
+# (utils/prewarm.py, SlamParameters.prewarmShapes) on and off
+
+
+STARTUP_TURNS = ("on", "off", "on", "off")  # fresh processes, in turns
+STARTUP_ROUNDS = (1, 1, 2, 2)  # rounds per turn: the second meets each event again
+STARTUP_BREAKDOWN_TURN = 3  # this "off" child also times the cold graph solve's parts
+STARTUP_KF_EVENTS = 3  # keyframe events before the loss
+STARTUP_FLAT = 2  # flat frames of the loss, as reloc_loop feeds them
+STARTUP_AFTER_RELOC = 2  # real frames fed after the relocalization
+STARTUP_CHILD_TIMEOUT_S = 240
+# SYSTEM_KF's world and step; the drive uses ~20 of its frames
+STARTUP_CFG = SYSTEM_KF._replace(n_timed=16)
+
+
+@contextlib.contextmanager
+def graph_breakdown(sync):
+    """Time the parts of the process's first essential-graph solve
+    (optim/pose_graph.optimize_pose_graph), each between synchronizes: the
+    first Jacobian (`_edge_jacobians`), the first torch.linalg.solve, and
+    the rest of the solve. Yields the record, filled once the solve has
+    run."""
+    from mono_slam_framework_torch.optim import pose_graph
+
+    real_pg, real_jac, real_solve = (pose_graph.optimize_pose_graph,
+                                     pose_graph._edge_jacobians, torch.linalg.solve)
+    rec: dict = {}
+    active = [False]
+
+    def first(key, fn):
+        def call(*a, **k):
+            if not active[0] or key in rec:
+                return fn(*a, **k)
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            rec[key] = (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def graph(*a, **k):
+        if "total_ms" in rec:
+            return real_pg(*a, **k)
+        active[0] = True
+        sync()
+        t0 = time.perf_counter()
+        try:
+            out = real_pg(*a, **k)
+            sync()
+        finally:
+            active[0] = False
+        rec["total_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["nodes"] = int(a[0].shape[0])
+        rec["edges"] = int(a[2].shape[0])
+        rec["rest_ms"] = rec["total_ms"] - rec.get("first_jacobian_ms", 0.0) \
+            - rec.get("first_solve_ms", 0.0)
+        return out
+
+    with mock.patch.object(pose_graph, "optimize_pose_graph", graph), \
+            mock.patch.object(pose_graph, "_edge_jacobians", first("first_jacobian_ms", real_jac)), \
+            mock.patch.object(torch.linalg, "solve", first("first_solve_ms", real_solve)):
+        yield rec
+
+
+def startup_round(dev, cfg: SystemConfig, world, images, prewarm_on: bool) -> dict:
+    """One round of phase startup: a System in the fused flow on `world`
+    (SYSTEM_KF: PERF.md §2's world at step 0.06) with prewarmShapes on or
+    off, driven through initialization, STARTUP_KF_EVENTS keyframe events,
+    STARTUP_FLAT flat frames and the relocalization after them; then
+    test_reloc_loop.py's surgical loop with pre-alignment at reloc_loop's
+    2000 features (a drifted revisit: the Sim(3) fit, the essential graph,
+    the loop GBA). Returns the ms of each first event, whether the warm was
+    running at it, the steady frames' p50 while the warm runs and after it,
+    the launches and the pose checksums of both maps."""
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    _reset_launches()
+    t0 = time.perf_counter()
+    system = build_system(dev, cfg, world, "fused", prewarmShapes=prewarm_on)
+    sync()
+    t_built = time.perf_counter()
+    drained: list = []
+    watcher = threading.Thread(
+        target=lambda: drained.append(prewarm.wait(600) and time.perf_counter()), daemon=True)
+    watcher.start()
+    system.toggle_initialization_allowed()
+    system.set_minimum_keyframes(0)  # a loss relocalizes, as in reloc_loop
+    flat = np.full((world.h, world.w), 128.0, np.float32)
+    frames: list = []  # (kind, ms, warm running at its start)
+    lost_at = reloc_at = None
+    n_events = 0
+    feed = iter(images)
+    with loop_spies(system, sync) as log:
+        while True:
+            state0 = system.tracker.state.name
+            if n_events >= STARTUP_KF_EVENTS and lost_at is None:
+                lost_at = len(frames)
+                imgs = [flat] * STARTUP_FLAT
+            elif reloc_at is not None and len(frames) >= reloc_at + 1 + STARTUP_AFTER_RELOC:
+                break
+            else:
+                imgs = [next(feed, None)]
+                if imgs[0] is None:
+                    raise AssertionError(f"startup: the drive ran out of frames: {frames}")
+            for img in imgs:
+                n_kf, warm = system.map.n_keyframes(), prewarm.pending() > 0
+                t1 = time.perf_counter()
+                system.track_monocular(img, len(frames) * 0.1)
+                sync()
+                ms = (time.perf_counter() - t1) * 1e3
+                state = system.tracker.state.name
+                if not frames:
+                    kind = "first"
+                elif img is flat:
+                    kind = "flat"
+                elif state == "OK" and state0 not in ("OK", "LOST"):
+                    kind = "init"
+                elif state == "OK" and state0 == "LOST":
+                    kind, reloc_at = "reloc", len(frames)
+                elif system.map.n_keyframes() > n_kf and state0 == "OK":
+                    kind = "kf_event"
+                    n_events += 1
+                else:
+                    kind = "steady" if state == "OK" else state
+                frames.append((kind, ms, warm))
+                state0 = state
+    relocs = [a for a in log["reloc"] if a["success"]]
+    if reloc_at is None or not relocs:
+        raise AssertionError(f"startup: no relocalization: {frames} {log['reloc']}")
+    setup = surgical_loop_setup(dev, LOOP_FULL.max_features, True, SURGICAL_DRIFT,
+                                prewarmShapes=prewarm_on)
+    warm_at_loop = prewarm.pending() > 0
+    with loop_spies(setup["system"], sync) as loop_log:
+        loop = run_surgical_loop(setup, sync)
+    watcher.join(timeout=600)
+
+    def ms_of(kind):
+        return [ms for k, ms, _ in frames if k == kind]
+
+    steady_warm = [ms for k, ms, w in frames if k == "steady" and w]
+    steady_after = [ms for k, ms, w in frames if k == "steady" and not w]
+    return {
+        "prewarm": prewarm_on, "construct_ms": (t_built - t0) * 1e3,
+        "warm_drained_ms": (drained[0] - t0) * 1e3 if drained and drained[0] else None,
+        "kinds": [k for k, _, _ in frames],
+        "first_frame_ms": ms_of("first")[0], "init_frame_ms": ms_of("init")[0],
+        "init_frame": [k for k, _, _ in frames].index("init"),
+        "kf_event_ms": ms_of("kf_event")[:STARTUP_KF_EVENTS],
+        "reloc_attempt_ms": relocs[0]["ms"], "reloc_frame_ms": ms_of("reloc")[0],
+        "reloc_attempts": len(log["reloc"]),
+        "loop_graph_ms": loop_log["graph_ms"][0] if loop_log["graph_ms"] else None,
+        "loop_gba_ms": loop_log["gba_ms"][0] if loop_log["gba_ms"] else None,
+        "loop_total_ms": loop["ms"], "loop_nodes": (loop["prealign_fit"] or {}).get("nodes"),
+        "warm_running_at": {"init": [w for k, _, w in frames if k == "init"][0],
+                            "kf_events": [w for k, _, w in frames if k == "kf_event"][:3],
+                            "reloc": [w for k, _, w in frames if k == "reloc"][0],
+                            "loop": warm_at_loop},
+        "steady_p50_warm_running_ms": _pct(steady_warm, 50), "steady_warm_running": len(steady_warm),
+        "steady_p50_after_ms": _pct(steady_after, 50), "steady_after": len(steady_after),
+        "launches": _launches(),
+        "drive_checksum": pose_checksum(system), "loop_checksum": pose_checksum(setup["system"]),
+    }
+
+
+def startup_child(mode: str, breakdown: bool, pose_problem_path: str | None = None,
+                  n_rounds: int = 2) -> int:
+    """`chip_smoke.py --startup-child on|off [--rounds N] [--breakdown]
+    [--pose-problem PATH]`: N rounds of startup_round in this fresh process
+    (a second meets every event a second time); prints one JSON line,
+    with whether the process imported torch._dynamo and its live objects
+    (what every full garbage collection walks). With a PATH,
+    saves the first pose problem of round 1 (kernel B2's input) there. The
+    kernels are built by the parent run (the same build directory)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    t_ctx = time.perf_counter()
+    _kernels.load()
+    world, _, images = render_system(STARTUP_CFG)
+    t_render = time.perf_counter()
+    sync = lambda: torch.cuda.synchronize(dev)  # noqa: E731
+    rounds = []
+    got: list = []
+    real = pose_opt.pose_optimize
+
+    def spy(*args):  # round 1's first pose problem
+        if not got:
+            got.append([a.cpu().clone() for a in args])
+        return real(*args)
+
+    with (graph_breakdown(sync) if breakdown else contextlib.nullcontext({})) as parts:
+        for r in range(n_rounds):
+            t1 = time.perf_counter()
+            with (mock.patch.object(pose_opt, "pose_optimize", spy) if r == 0
+                  else contextlib.nullcontext()):
+                rounds.append(startup_round(dev, STARTUP_CFG, world, images, mode == "on"))
+            rounds[-1]["round_s"] = time.perf_counter() - t1
+    prewarm.wait(600)
+    if pose_problem_path:
+        torch.save(got[0], pose_problem_path)
+    libc = ctypes.CDLL(None)
+    libc.getenv.restype = ctypes.c_char_p
+    print(json.dumps({
+        "phase": "startup_child", "prewarm": mode, "card": card(dev),
+        "cuda_context_ms": (t_ctx - t0) * 1e3, "setup_s": t_render - t_ctx, "rounds": rounds,
+        "warm_timings": prewarm.timings(),
+        "graph_breakdown": parts or None, "warm_requests": len(prewarm._seen),
+        "failures": prewarm.failures(),
+        "dynamo_imported": "torch._dynamo" in sys.modules, "live_objects": len(gc.get_objects()),
+        "linalg_library": str(torch.backends.cuda.preferred_linalg_library()),
+        # as the process has it once CUDA is up (PyTorch sets it when unset)
+        "cuda_module_loading": (libc.getenv(b"CUDA_MODULE_LOADING") or b"").decode(),
+        "cuda_module_loading_at_start": os.environ.get("CUDA_MODULE_LOADING"),
+    }), flush=True)
+    return 0
+
+
+def startup_phase(dev) -> dict:
+    """Phase startup: STARTUP_TURNS fresh processes (this script with
+    --startup-child), the warm on and off in turns, each STARTUP_ROUNDS
+    rounds of startup_round; then, here, kernel B1 on the phase's first frame and B2
+    on the first child's first pose problem against their plain versions.
+    Fails on any warm failure, on "on" and "off" checksums that differ, on a
+    round without B1 and B2 launches, or on a kernel check. Returns the
+    children's launches."""
+    children = []
+    problem = tempfile.NamedTemporaryFile(suffix=".pt", delete=False).name
+    for turn, mode in enumerate(STARTUP_TURNS):
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--startup-child", mode,
+               "--rounds", str(STARTUP_ROUNDS[turn])]
+        if turn == STARTUP_BREAKDOWN_TURN:
+            cmd.append("--breakdown")
+        if turn == 0:
+            cmd += ["--pose-problem", problem]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             timeout=STARTUP_CHILD_TIMEOUT_S)
+        if out.returncode != 0:
+            raise AssertionError(f"startup child {mode} exited {out.returncode}: "
+                                 f"{out.stderr[-4000:]}")
+        rec = _last_json(out.stdout)
+        rec["process_s"] = time.perf_counter() - t0
+        children.append(rec)
+    world, _, images = render_system(STARTUP_CFG._replace(n_warm=1, n_timed=0))
+    b1 = check_b1(images[0], dev)
+    prob = [t.to(dev) for t in torch.load(problem)]
+    os.unlink(problem)
+    b2 = compare_b2(pose_opt_cuda.pose_optimize_cuda(*prob),
+                    pose_opt.pose_optimize_plain(*prob), "startup drive")
+    keys = ("construct_ms", "warm_drained_ms", "first_frame_ms", "init_frame_ms", "kf_event_ms",
+            "reloc_attempt_ms", "loop_graph_ms", "loop_total_ms", "steady_p50_warm_running_ms",
+            "steady_p50_after_ms")
+    summary = {f"{m}_round{r + 1}": [{k: c["rounds"][r][k] for k in keys}
+                                     for c in children if c["prewarm"] == m and len(c["rounds"]) > r]
+               for m in ("on", "off") for r in range(2)}
+    sums = {(r, k): sorted({(c["prewarm"], c["rounds"][r][k]) for c in children
+                            if len(c["rounds"]) > r})
+            for r in range(2) for k in ("drive_checksum", "loop_checksum")}
+    rec = {"phase": "startup", "card": card(dev), "children": children, **summary,
+           "graph_breakdown": children[STARTUP_BREAKDOWN_TURN]["graph_breakdown"],
+           "b1": b1, "b2": {**b2, "slots": int(prob[1].shape[0]), "valid": int(prob[3].sum())}}
+    _print(rec)
+    failures = [(c["prewarm"], f) for c in children for f in c["failures"]]
+    if failures:
+        raise AssertionError(f"startup: warm failures {failures}")
+    if any(len({v for _, v in vals}) != 1 for vals in sums.values()):
+        raise AssertionError(f"startup: the warm changed the maps: {sums}")
+    launches = collections.Counter()
+    for c in children:
+        for r in c["rounds"]:
+            if min(r["launches"].values()) < 1:
+                raise AssertionError(f"startup: a round launched {r['launches']}")
+            launches.update(r["launches"])
+    return dict(launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3514,7 +3831,26 @@ def multi_device_phases(mesh, ms: dict, images, world_s, poses_s, images_s,
     return {"b1_batch": launches["b1_batch"], "b2": launches["b2"], "seconds": seconds}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
+    ap.add_argument("--startup-child", choices=("on", "off"),
+                    help="run one fresh process of phase startup with the warm on or off")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="with --startup-child: rounds in the process (default 2)")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="with --startup-child: time the parts of the cold graph solve")
+    ap.add_argument("--pose-problem", default=None,
+                    help="with --startup-child: save round 1's first pose problem here")
+    ap.add_argument("--log", default=None,
+                    help="also append every phase's JSON record to this file")
+    args = ap.parse_args(argv)
+    if args.log:
+        pathlib.Path(args.log).parent.mkdir(parents=True, exist_ok=True)
+        RECORD_LOG.append(args.log)
+    if args.startup_child:
+        return startup_child(args.startup_child, args.breakdown, args.pose_problem, args.rounds)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
         return 1
@@ -3668,6 +4004,7 @@ def main() -> int:
 
     fused_launches = fused_phases(dev, sys_cfg, SYSTEM_KF, world_s, poses_s, images_s, run)
     loop_launches = reloc_loop_phase(dev, LOOP_FULL)
+    startup_launches = startup_phase(dev)
 
     # ---- the LoFTR matcher: model, System in three flows, B2 at 1200 slots ----
     _print(check_loftr_model(dev))
@@ -3710,7 +4047,8 @@ def main() -> int:
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:306",
          "launches": n_b1 + run["launches"]["b1"] + fused_launches["b1"] + loop_launches["b1"]
          + loftr_launches["b1"] + app_launches["b1"] + serve_launches["b1"] + batch_b1
-         + sharded["b1_batch"],
+         + sharded["b1_batch"] + startup_launches["b1"],
+         "startup_launches": startup_launches["b1"],
          "sharded_launches": sharded["b1_batch"],
          "max_abs_err": max(b1["max_abs_err"].values()),
          "ms": b1_ms, "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
@@ -3727,6 +4065,7 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:215",
          "launches": per_level_launches["banded"], "sharded_launches": 0,
+         "startup_launches": 0,
          "max_abs_err": max(lvl_full["max_abs_err"].values()),
          "ms": banded_ms, "wrapper_ms": banded_wrapper_ms, "plain_ms": banded_plain_ms,
          "bound_ms": banded_bound[0],
@@ -3735,6 +4074,7 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/detect.cu",
          "replaces": "mono_slam_framework_tpu/ops/pallas_detect.py:202",
          "launches": per_level_launches["full"], "sharded_launches": 0,
+         "startup_launches": 0,
          "max_abs_err": max(lvl_small["max_abs_err"].values()),
          "ms": full_ms, "wrapper_ms": full_wrapper_ms, "plain_ms": full_plain_ms,
          "bound_ms": full_bound[0],
@@ -3743,7 +4083,9 @@ def main() -> int:
          "source": "mono_slam_framework_torch/csrc/pose_lm.cu",
          "replaces": "mono_slam_framework_tpu/optim/pose_opt_pallas.py:203",
          "launches": n_b2 + run["launches"]["b2"] + fused_launches["b2"] + loop_launches["b2"]
-         + loftr_launches["b2"] + app_launches["b2"] + batch_b2 + sharded["b2"],
+         + loftr_launches["b2"] + app_launches["b2"] + batch_b2 + sharded["b2"]
+         + startup_launches["b2"],
+         "startup_launches": startup_launches["b2"],
          "sharded_launches": sharded["b2"],
          "app_launches": app_launches["b2"],
          "multistream_launches": multi["launches"]["b2"], "server_launches": serve_launches["b2"],

@@ -52,6 +52,13 @@ def _eye3(like):
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
+def exp_so3(w):
+    """Rodrigues: 3-vector -> 3x3 rotation."""
+    A, B, _ = _sinc_coeffs(torch.sum(w * w, dim=-1))
+    W = hat(w)
+    return _eye3(w) + A[..., None, None] * W + B[..., None, None] * (W @ W)
+
+
 def orthonormalize(T):
     """Project the rotation block of a [..., 4, 4] transform onto SO(3).
 
@@ -99,14 +106,13 @@ def exp_se3(xi):
     return _from_rt(R, V @ v[..., None])
 
 
-def log_se3(T):
-    """4x4 transform -> tangent [omega, upsilon]."""
-    t = T[..., :3, 3]
-    w = log_so3(T[..., :3, :3])
+def so3_left_jacobian_inv(w):
+    """V^{-1} of exp_se3 at the rotation vector w [..., 3] (the inverse left
+    Jacobian of SO(3)): I - W/2 + (1/theta^2)(1 - A/(2B)) W^2, Taylor below
+    0.05."""
     theta2 = torch.sum(w * w, dim=-1)
     A, B, _ = _sinc_coeffs(theta2)
     W = hat(w)
-    # V^{-1} = I - W/2 + (1/theta^2)(1 - A/(2B)) W^2, Taylor below 0.05
     small = theta2 < SMALL_THETA2
     t2 = torch.where(small, torch.ones_like(theta2), theta2)
     Bs = torch.where(small, torch.ones_like(B), B)
@@ -115,8 +121,14 @@ def log_se3(T):
         1.0 / 12.0 + theta2 / 720.0 + theta2 * theta2 / 30240.0,
         (1.0 - A / (2.0 * Bs)) / t2,
     )
-    Vinv = _eye3(T) - 0.5 * W + coef[..., None, None] * (W @ W)
-    v = (Vinv @ t[..., None])[..., 0]
+    return _eye3(w) - 0.5 * W + coef[..., None, None] * (W @ W)
+
+
+def log_se3(T):
+    """4x4 transform -> tangent [omega, upsilon]."""
+    t = T[..., :3, 3]
+    w = log_so3(T[..., :3, :3])
+    v = (so3_left_jacobian_inv(w) @ t[..., None])[..., 0]
     return torch.cat([w, v], dim=-1)
 
 
@@ -173,3 +185,18 @@ def rotation_to_quaternion(R):
     )
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def quaternion_to_rotation(q):
+    """Quaternion [qx, qy, qz, qw] -> 3x3 rotation."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1)
+    row1 = torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1)
+    row2 = torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def make_T(R, t):
+    """[..., 3, 3] rotation and [..., 3] translation -> [..., 4, 4]."""
+    return _from_rt(R, t[..., None])

@@ -31,6 +31,7 @@ import torch
 from mono_slam_framework_torch import device as device_mod
 from mono_slam_framework_torch.matchers.base import FeatureMatcher, MatchFramesResult
 from mono_slam_framework_torch.models import loftr_native
+from mono_slam_framework_torch.ops.filters import resize_weights
 
 MODEL_H, MODEL_W = 480, 640
 CELL = 16  # model_resolution (src/main.cpp:64)
@@ -47,26 +48,6 @@ def _decode_cells(flat_idx: np.ndarray):
     xy1 = np.stack([(cell1 % GRID_W) * CELL, (cell1 // GRID_W) * CELL], -1)
     xy2 = np.stack([(cell2 % GRID_W) * CELL, (cell2 // GRID_W) * CELL], -1)
     return xy1.astype(np.int32), xy2.astype(np.int32)
-
-
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[in_size, out_size] f32 weights of a 1-D bilinear resize, as
-    jax.image.resize builds them (scale_and_translate's compute_weight_mat
-    with the triangle kernel and antialias): sample at the output pixel's
-    centre, the kernel widened by the shrink factor, each column normalized
-    over the input samples it covers."""
-    f32 = np.float32
-    scale = out_size / in_size
-    inv_scale = f32(1.0 / scale)
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    w = np.maximum(f32(0.0), f32(1.0) - x)
-    total = np.sum(w, axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -42,6 +42,23 @@ def _interior3(img):
     return (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
 
 
+def fast_score_map(img, threshold=20.0):
+    """FAST-9 corner mask and score of an [..., H, W] image: the score is
+    the OpenCV-style max over passing arcs of the arc's min |difference|, 0
+    off corners; the 3 px border is never a corner."""
+    diff = _ring(img) - img[None]
+    bright, dark = diff > threshold, diff < -threshold
+    absd = diff.abs()
+    neg_inf = torch.tensor(-torch.inf, dtype=img.dtype, device=img.device)
+    score = torch.full_like(img, -torch.inf)
+    for s in range(16):
+        sel = [(s + k) % 16 for k in range(9)]
+        win = bright[sel].all(0) | dark[sel].all(0)
+        score = torch.maximum(score, torch.where(win, absd[sel].amin(0), neg_inf))
+    is_corner = _any_arc9(bright) | _any_arc9(dark)
+    return is_corner & _interior3(img), torch.where(is_corner, score, 0.0)
+
+
 def corner_mask(img, threshold=20.0):
     """FAST-9 corner mask of an [H, W] image (the mask of the JAX package's
     `fast_score_map`): strict `>` against the threshold; the 3 px border the
@@ -65,3 +82,20 @@ def harris_response(img, block_size=7, k=0.04):
     sxx, syy, sxy = sums[0], sums[1], sums[2]
     tr = sxx + syy
     return (sxx * syy - sxy * sxy) - k * tr * tr
+
+
+def detect(img, max_corners, threshold=20.0, border=31):
+    """The top `max_corners` FAST corners of an [H, W] image ranked by
+    Harris after 3x3 NMS, at least `border` px inside: (xs i32 [K], ys i32
+    [K], response f32 [K], valid bool [K]); empty slots are -inf and
+    invalid. The selection is exact (the JAX package's approx_max_k is a
+    TPU primitive)."""
+    h, w = img.shape
+    yy = torch.arange(h, device=img.device)[:, None]
+    xx = torch.arange(w, device=img.device)[None, :]
+    inside = (yy >= border) & (yy < h - border) & (xx >= border) & (xx < w - border)
+    cand = torch.where(corner_mask(img, threshold) & inside, harris_response(img), -torch.inf)
+    score = torch.where(cand >= filters.max_pool_3x3_same(cand), cand, -torch.inf)
+    vals, idx = torch.topk(score.reshape(-1), max_corners)
+    ys = idx // w
+    return (idx - ys * w).to(torch.int32), ys.to(torch.int32), vals, torch.isfinite(vals)

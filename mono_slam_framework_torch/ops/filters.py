@@ -49,6 +49,42 @@ def gaussian_blur(img, size=7, sigma=2.0):
     return sep_conv2d(img, k, k)
 
 
+def box_blur(img, size):
+    """Box blur of one [H,W] image: SAME, zero padding."""
+    k = torch.full((size,), 1.0 / size, dtype=img.dtype)
+    return sep_conv2d(img, k, k)
+
+
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[in_size, out_size] f32 weights of a 1-D bilinear resize, as
+    jax.image.resize builds them (scale_and_translate's compute_weight_mat
+    with the triangle kernel and antialias): sample at the output pixel's
+    centre, the kernel widened by the shrink factor, each column normalized
+    over the input samples it covers."""
+    f32 = np.float32
+    scale = out_size / in_size
+    inv_scale = f32(1.0 / scale)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = np.sum(w, axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bilinear(img, new_hw):
+    """[..., H, W] -> [..., h, w] as jax.image.resize(img, new_hw,
+    "bilinear") does (antialiased when it shrinks): two products with the
+    separable weight matrices."""
+    h, w = img.shape[-2:]
+    wy = torch.from_numpy(resize_weights(h, new_hw[-2]).T.copy()).to(img.device, img.dtype)
+    wx = torch.from_numpy(resize_weights(w, new_hw[-1])).to(img.device, img.dtype)
+    return wy @ img @ wx
+
+
 def max_pool_3x3_same(x):
     """3x3 max filter with -inf SAME padding over the last two dims (NMS)."""
     return F.max_pool2d(x[None], 3, stride=1, padding=1)[0]

@@ -100,11 +100,15 @@ class SlamParameters:
     # degraded frame. 0 disables the gate.
     fusedInlierFloorShare: float = 0.06
 
-    # Background-compile upcoming pow2 shape buckets (bundle adjustment,
-    # initializer, EPnP, triangulation) in a daemon thread so the first
-    # keyframe event at a new bucket does not stall on a relay compile
-    # (utils/prewarm.py). ON by default; harmless where compiles are cheap.
-    prewarmShapes: bool = True
+    # Solve an essential graph in a background thread when the System is
+    # built on a card, so that the first loop correction finds the solve's
+    # one-time set-up paid (slam/device_io.prewarm_startup_shapes,
+    # utils/prewarm.py; a no-op on the CPU). The JAX package warms its
+    # compile cache's shape buckets here, on by default. OFF by default in
+    # the port: on an H100 the warm's thread slowed a process's first
+    # initialization by more than it saved its first loop correction
+    # (chip_smoke phase startup, PERF.md).
+    prewarmShapes: bool = False
 
     # Opt-in escape from the post-relocalization KF-insertion cooldown
     # (Tracking.cc:525-527 blocks insertion for maxFrames after reloc; with a

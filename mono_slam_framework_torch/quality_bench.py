@@ -4,9 +4,10 @@ PyTorch port's counterpart of `mono_slam_framework_tpu/quality_bench.py`.
 Run as `python -m mono_slam_framework_torch.quality_bench [--device cuda|cpu]`;
 prints ONE cumulative JSON line after each arm. The drives run on `device`
 (default `cuda`) with 2000 ORB features there and 600 on the CPU, the
-choice the JAX bench makes by backend. The JAX bench's prewarm argument and
-its XLA compile-cache reclaim have no counterpart here: the port compiles
-nothing per shape.
+choice the JAX bench makes by backend. Its background warm
+(`prewarmShapes`) keeps the port's default, off, where the JAX bench turns
+it on for its accelerator. The JAX bench's XLA compile-cache reclaim has no
+counterpart here: the port compiles nothing per shape.
 
 The scenario is the off-lattice "hard world" of tests/test_hard_world.py
 minus the sensor-dropout leg: a rectangular lawnmower loop whose return

@@ -9,14 +9,16 @@ The reference's manual initialization gate (keyboard 'I', main.cpp:173-175)
 becomes `--init-frame` (toggle after N frames; default 0 = immediately).
 
 The matcher and the System run on `--device` (default `cuda`: the card,
-kernels B1 and B2; `cpu` runs their plain versions). The JAX runner's
-`--prewarm` is left out: the port compiles no shape buckets ahead, so it
-has nothing to prewarm.
+kernels B1 and B2; `cpu` runs their plain versions). `--prewarm` solves an
+essential graph in a background thread at start, ahead of the first loop
+correction (SlamParameters.prewarmShapes; a no-op on the CPU). It is off by
+default, where the JAX runner's is on: on the card the warm slows the first
+initialization by more than it saves the first correction.
 
 Usage:
   python -m mono_slam_framework_torch.run --dataset tum --path <seq_dir> \
       --matcher orb --fx 517.3 --fy 516.5 --cx 318.6 --cy 255.3 \
-      --out traj.txt [--max-frames N] [--ate] [--device cuda|cpu]
+      --out traj.txt [--max-frames N] [--ate] [--prewarm] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -122,6 +124,13 @@ def main(argv=None):
         "latency; System.track_monocular_pipelined)",
     )
     p.add_argument(
+        "--prewarm",
+        action=argparse.BooleanOptionalAction,
+        default=False,
+        help="solve an essential graph in a background thread at start, ahead "
+        "of the first loop correction (utils/prewarm.py). Default off",
+    )
+    p.add_argument(
         "--reloc-cooldown-inlier-floor",
         type=int,
         default=0,
@@ -159,6 +168,7 @@ def main(argv=None):
         relocCooldownInlierFloor=args.reloc_cooldown_inlier_floor,
         fusedTracking=args.fused or args.fused_one_step or args.pipelined,
         fusedOneStep=args.fused_one_step or args.pipelined,
+        prewarmShapes=args.prewarm,
     )
     system = System(
         params, matcher, KeyFrameMatchDatabase(matcher), verbose=not args.quiet,

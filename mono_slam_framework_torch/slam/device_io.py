@@ -10,8 +10,11 @@ replacement for the reference's Optimizer.cc g2o glue:
                               (62-215) incl. the staged nLoopKF != 0 mode
 
 Every function takes the device to run on. Arrays have the problem's own
-sizes: the JAX package's pow2 padding, capacity ladders and prewarming
-exist for its compile cache and are not ported.
+sizes: the JAX package's pow2 padding and capacity ladders exist for its
+compile cache and are not ported. Of its background warm, the start-up warm
+of the essential graph is (`prewarm_startup_shapes`); the warms of its
+ladder rungs have no counterpart, since eager PyTorch compiles nothing per
+shape.
 """
 
 from __future__ import annotations
@@ -19,17 +22,53 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mono_slam_framework_torch.geometry import se3
 from mono_slam_framework_torch.optim import bundle_adjust as ba
 from mono_slam_framework_torch.optim import pose_opt
+from mono_slam_framework_torch.utils.prewarm import Build, Spec, prewarm
 
 # above this camera count the full-map BA switches from the dense Schur
 # solve to matrix-free PCG (O(E) per CG application, no O(sum deg^2) pair
 # list)
 GLOBAL_BA_DENSE_MAX_CAMS = 24
 
+# (nodes, edges) of the essential-graph warms (the JAX package's rungs)
+GRAPH_WARM_SIZES = ((16, 128), (64, 512))
+
 
 def _to(device, a, dtype):
     return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+
+def prewarm_startup_shapes(device) -> None:
+    """Background-warm the first loop correction's essential graph at System
+    construction, at the sizes the JAX package warms it ((16, 128) and (64,
+    512) nodes and edges): the loop event is once per run, so a cold first
+    solve would stall the correction right when quality is measured.
+    Asynchronous, and a no-op on the CPU (utils/prewarm.py). The JAX
+    package's start-up warms of local BA, the triangulation sweep and
+    batched matching are left out: they fill its compile cache, and the
+    port measured no first-use cost in its first keyframe events."""
+    from mono_slam_framework_torch.optim.pose_graph import optimize_pose_graph
+
+    for N, E in GRAPH_WARM_SIZES:
+        prewarm(optimize_pose_graph, *(Build(Spec(tuple(t.shape), t.dtype, device), t.to)
+                                       for t in graph_problem(N, E)))
+
+
+def graph_problem(N: int, E: int) -> tuple:
+    """optimize_pose_graph's arguments for a warm, on the CPU: N
+    near-identity poses (node k rotated by k x (0.01, -0.02, 0.005) rad and
+    moved by k x (-0.1, 0.01, 0) m), node 0 fixed, and E edges (the chain,
+    then skips of 2, 3, ...), each measured as T_i T_j^-1 of the poses it
+    joins, weight 1."""
+    T = se3.exp_se3(torch.arange(N, dtype=torch.float32)[:, None]
+                    * torch.tensor([0.01, -0.02, 0.005, -0.1, 0.01, 0.0]))
+    e = torch.arange(E)
+    e_i = e % (N - 1)
+    e_j = torch.clamp(e_i + 1 + (e // (N - 1)) % (N - 1), max=N - 1)
+    return (T, torch.arange(N) == 0, e_i, e_j, T[e_i] @ se3.inverse(T[e_j]),
+            torch.ones(E))
 
 
 def optimize_frame_pose(frame, device) -> int:

@@ -120,6 +120,10 @@ class KeyPointMap:
         if item is not None:
             item.outlier = outlier
 
+    def is_outlier(self, index: int) -> bool:
+        item = self._items.get(index)
+        return bool(item.outlier) if item else False
+
     def items(self):
         """Iterate (index, MapPointItem) — the reference's Begin()/End()."""
         return self._items.items()

@@ -108,6 +108,11 @@ class Map:
     def get_last_big_change_idx(self) -> int:
         return self.big_change_idx
 
+    def good_bad_map_points(self):
+        """(good, bad) map-point counts."""
+        nbad = sum(1 for mp in self.map_points if mp.is_bad)
+        return len(self.map_points) - nbad, nbad
+
     def origin_kf_id(self) -> int:
         """Id of the map's FIRST keyframe — the BA gauge anchor, the
         cull-protected spanning-tree root, and the KF local mapping / loop
@@ -519,6 +524,9 @@ class KeyFrame(FrameBase):
             return -1.0
         depths.sort()
         return depths[(len(depths) - 1) // q]
+
+    def is_in_image(self, x: float, y: float) -> bool:
+        return self.min_x <= x < self.max_x and self.min_y <= y < self.max_y
 
 
 class KeyFrameFactory:

@@ -18,7 +18,11 @@ database) and a detected loop is corrected (Sim(3) pre-alignment, essential
 graph, fuse, loop global BA), both on the System's device. As in the JAX
 package, the System always builds a map drawer and the tracker updates it
 on every OK frame; `start_gui` starts its viewer thread. Checkpoints keep
-the JAX package's .npz layout (io/checkpoint.py).
+the JAX package's .npz layout (io/checkpoint.py). With
+`SlamParameters.prewarmShapes` (off by default) a System on a card solves an
+essential graph in a background thread at construction, so that its first
+loop correction finds the solve's one-time set-up paid
+(device_io.prewarm_startup_shapes).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from mono_slam_framework_torch import device as device_mod
 from mono_slam_framework_torch.geometry import se3
-from mono_slam_framework_torch.slam import fused_host
+from mono_slam_framework_torch.slam import device_io, fused_host
 from mono_slam_framework_torch.slam.frame import FrameFactory
 from mono_slam_framework_torch.slam.local_mapping import LocalMapping
 from mono_slam_framework_torch.slam.loop_closing import LoopClosing
@@ -95,6 +99,11 @@ class System:
         self.tracker.loop_closer = self.loop_closer
         self.local_mapper.set_loop_closer(self.loop_closer)
         self.loop_closer.set_local_mapper(self.local_mapper)
+
+        if parameters.prewarmShapes:
+            # the first loop correction's solve, in the background (a no-op
+            # on the CPU: utils/prewarm.py)
+            device_io.prewarm_startup_shapes(self.device)
 
         self._current_position: np.ndarray | None = None
         self._big_change_seen = 0

@@ -5,7 +5,7 @@ StageTimer: named wall-clock accumulators around pipeline stages, named
 after the reference's modules (the reference has no tracing at all,
 SURVEY.md §5). Device work inside a stage is counted only as far as the
 stage waits for it; the host pipeline reads every result back, so each
-stage ends synchronized. For device traces use `torch.profiler`.
+stage ends synchronized. `trace` writes a `torch.profiler` device trace.
 """
 
 from __future__ import annotations
@@ -42,3 +42,20 @@ class StageTimer:
     def reset(self) -> None:
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profiler trace around a code block: CPU and, where there is a card,
+    CUDA activity, written to `log_dir` as a Chrome trace that TensorBoard's
+    profiler plugin also reads (the JAX package's jax.profiler trace)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+    ):
+        yield

@@ -170,9 +170,10 @@ def test_cli_end_to_end(mini_tum, tmp_path, capsys):
 
 ARGVS = {
     "defaults": [],
-    "unfused": ["--no-fused", "--no-fused-one-step", "--min-ini-matches", "60"],
+    "unfused": ["--no-fused", "--no-fused-one-step", "--min-ini-matches", "60",
+                "--no-prewarm"],
     "pipelined": ["--pipelined", "--reloc-cooldown-inlier-floor", "40", "--gamma", "0.8",
-                  "--max-frames", "5", "--init-frame", "2"],
+                  "--max-frames", "5", "--init-frame", "2", "--prewarm"],
 }
 
 
@@ -185,7 +186,12 @@ def test_argv_to_parameters_equals_jax(mini_tum, recorders, tmp_path, capsys, ca
     run.main(_argv(root, world, "--out", out, "--device", "cpu", *ARGVS[case]))
     port_summary = _summary(capsys)
     (j,), (p,) = recorders["jax"], recorders["port"]
-    assert dataclasses.asdict(p.params) == dataclasses.asdict(j.params)
+    got, want = dataclasses.asdict(p.params), dataclasses.asdict(j.params)
+    if case == "defaults":
+        # the one default the port sets otherwise: its background warm is off
+        # unless --prewarm asks for it (params.py prewarmShapes)
+        assert (got.pop("prewarmShapes"), want.pop("prewarmShapes")) == (False, True)
+    assert got == want
     assert p.kw == {"device": "cpu"}
     assert p.frames == j.frames
     jax_summary.pop("fps"), port_summary.pop("fps")
