@@ -97,6 +97,21 @@ line and raises if it fails:
                 match_frames, fine_refine's offsets bf16 against f32, and
                 CUDA-event times of encode, one pairwise
                 confidence_from_features and match_one_against_many at N = 8;
+ 14a. onnx_oracle — the ONNX-graph interpreter (models/loftr.py), the golden
+                oracle of the native forward on the real export; here
+                (the export is not in the repo) tests/torch_onnx_graphs.py
+                writes the coarse LoFTR graph at 480x640 (L = 1200) on the
+                committed weights; the interpreter on the card against the
+                interpreter on the CPU and against loftr_native in f32 on
+                the card (each max |d| < 1e-5, argmax agreement > 0.999,
+                tests/test_loftr.py:106-107; the written graph encodes the
+                native forward's decoding, so the latter checks the writer),
+                the graph's op census (21 Conv,
+                65 MatMul, 16 Elu, 2 Softmax), the extraction tool's round
+                trip (tools/torch_extract_loftr_weights.py, bit-equal to the
+                committed npz), CUDA-event ms per forward (median of 5 after
+                2 warm runs) and device ops per forward for the interpreter,
+                native f32 and native bf16;
  15. system_loftr, system_loftr_fused, system_loftr_pipelined — the System
                 regime of phase 9 with LoftrFeatureMatcher(threshold=0.1,
                 fine=False), minIniMatchCount=60: the reference-twin flow, the
@@ -501,9 +516,10 @@ def steady_problem(seed: int = 5, n: int = 2000, keep_share: float = 0.3):
     return T0, X, uv, valid, K, info
 
 
-def _cuda_ms(fn, n: int = 20) -> float:
-    """Median of n CUDA-event timings of fn() after one warm-up call."""
-    fn()
+def _cuda_ms(fn, n: int = 20, warm: int = 1) -> float:
+    """Median of n CUDA-event timings of fn() after `warm` warm-up calls."""
+    for _ in range(warm):
+        fn()
     times = []
     for _ in range(n):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1822,6 +1838,75 @@ def check_loftr_model(dev) -> dict:
         raise AssertionError(f"match_against_many differs from serial matches: {rec}")
     if not (np.isfinite(off16).all() and np.abs(off16).max() <= 8.0 + 1e-3):
         raise AssertionError(f"fine_refine offsets leave the cell: {rec}")
+    return rec
+
+
+# the oracle against the CPU and against native f32: test_loftr.py:106-107
+MAX_ORACLE_ABS = 1e-5
+MIN_ORACLE_ARGMAX = 0.999
+ORACLE_CENSUS = {"Conv": 21, "MatMul": 65, "Elu": 16, "Softmax": 2}  # models/loftr.py:12-13
+ORACLE_WARM, ORACLE_TIMED = 2, 5  # forwards before the timed ones; timed forwards (median)
+
+
+def onnx_oracle_phase(dev) -> dict:
+    """Phase onnx_oracle (see the module docstring)."""
+    sys.path += [str(ROOT / "tests"), str(ROOT / "tools")]
+    import torch_extract_loftr_weights as tool
+    import torch_onnx_graphs
+
+    from mono_slam_framework_torch.models import loftr as oracle_mod
+    from mono_slam_framework_torch.models import onnx_reader
+
+    t0 = time.perf_counter()
+    a, b = loftr_pair()
+    x = torch.from_numpy(np.stack([a, b])[:, None] / 255.0).float()
+    xd = x.to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = torch_onnx_graphs.loftr_coarse_graph(480, 640, loftr_native.WEIGHTS_PATH, tool).save(
+            pathlib.Path(tmp) / "loftr_coarse.onnx")
+        oracle = oracle_mod.LoftrModel(path, device=dev)
+        oracle_cpu = oracle_mod.LoftrModel(path, device="cpu")
+        extracted = tool.extract(path)
+    with np.load(loftr_native.WEIGHTS_PATH) as z:
+        committed = {k: z[k] for k in z.files}
+    census = onnx_reader.op_census(oracle.graph)
+    card_conf = oracle.confidence(xd[:1], xd[1:])[0].cpu().numpy()
+    cpu_conf = oracle_cpu.confidence(x[:1], x[1:])[0].numpy()
+    model = loftr_native.load_model(device=dev)
+    interp = lambda: oracle.confidence(xd[:1], xd[1:])  # noqa: E731
+    native = lambda: loftr_native.loftr_confidence(model, xd[:1], xd[1:])  # noqa: E731
+    with loftr_f32():
+        native32 = native()[0].cpu().numpy()
+        native32_ms = _cuda_ms(native, ORACLE_TIMED, ORACLE_WARM)
+        native32_ops = device_ops(native, 1)
+    rec = {
+        "phase": "onnx_oracle", "card": card(dev), "size": [480, 640],
+        "cells": card_conf.shape[0], "nodes": len(oracle.graph.nodes),
+        "census": census,
+        "card_vs_cpu": {"max_abs": float(np.abs(card_conf - cpu_conf).max()),
+                        "argmax_agreement": float((card_conf.argmax(1)
+                                                   == cpu_conf.argmax(1)).mean())},
+        "card_vs_native_f32": {"max_abs": float(np.abs(card_conf - native32).max()),
+                               "argmax_agreement": float((card_conf.argmax(1)
+                                                          == native32.argmax(1)).mean())},
+        "round_trip_bit_equal": list(extracted) == list(committed) and all(
+            extracted[k].dtype == v.dtype and extracted[k].tobytes() == v.tobytes()
+            for k, v in committed.items()),
+        "interpreter_ms": _cuda_ms(interp, ORACLE_TIMED, ORACLE_WARM),
+        "native_f32_ms": native32_ms,
+        "native_bf16_ms": _cuda_ms(native, ORACLE_TIMED, ORACLE_WARM),
+        "interpreter_device_ops": device_ops(interp, 1), "native_f32_device_ops": native32_ops,
+        "native_bf16_device_ops": device_ops(native, 1),
+    }
+    rec["seconds"] = round(time.perf_counter() - t0, 3)
+    for what in ("card_vs_cpu", "card_vs_native_f32"):
+        agree = rec[what]
+        if not (agree["max_abs"] < MAX_ORACLE_ABS and agree["argmax_agreement"] > MIN_ORACLE_ARGMAX):
+            raise AssertionError(f"the ONNX oracle on the card differs ({what}): {rec}")
+    if {k: census.get(k) for k in ORACLE_CENSUS} != ORACLE_CENSUS:
+        raise AssertionError(f"the written LoFTR graph's census is {census}")
+    if not rec["round_trip_bit_equal"]:
+        raise AssertionError("the extraction tool does not return the committed weights")
     return rec
 
 
@@ -4008,6 +4093,7 @@ def main(argv=None) -> int:
 
     # ---- the LoFTR matcher: model, System in three flows, B2 at 1200 slots ----
     _print(check_loftr_model(dev))
+    _print(onnx_oracle_phase(dev))
     loftr = loftr_system_phases(dev)
     quality = run_quality_loftr(dev)
     _print(quality)
