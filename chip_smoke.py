@@ -2908,8 +2908,11 @@ SERVER_WARM = 10
 SERVER_TIMED = 24
 SERVER_LOFTR_TIMED = 24
 # LoFTR streams step by 0.001 (0.020 - 0.023): at bench_server's widest step,
-# 0.032, the LoFTR System does not initialize on this world (server_loftr
-# records it as bench_widest_step; ROADMAP C.15)
+# 0.032, the LoFTR System does not initialize on this world, and neither does
+# the JAX package's (both NOT_INITIALIZED over 34 frames on the CPU; at 0.02
+# both are OK with 2 keyframes from frame 3, in the same state on every frame:
+# tools/quality_drive_parity.py --flow loftr-init; ROADMAP C.15). server_loftr
+# records the widest step as bench_widest_step.
 SERVER_LOFTR_STEP = 0.001
 MAX_SERVER_ATE = 0.15  # tests/test_server.py:109
 MAX_SERVER_PAIR_ATE = 0.05  # tests/test_server.py:114

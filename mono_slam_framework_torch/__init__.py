@@ -20,4 +20,7 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from mono_slam_framework_torch.params import SlamParameters  # noqa: E402
+
+__all__ = ["SlamParameters"]
 __version__ = "0.1.0"

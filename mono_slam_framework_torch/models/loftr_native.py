@@ -185,10 +185,10 @@ def _posenc_cached(h: int, w: int, c: int, device: torch.device) -> torch.Tensor
     return torch.from_numpy(_posenc_np(h, w, c)).to(device)
 
 
-def positional_encoding(h: int, w: int, c: int = C, device="cpu") -> torch.Tensor:
-    """Interleaved sine table [c, h, w]; group-k frequency exp(-2k),
-    1-indexed (the exported 480x640 table to f32 rounding)."""
-    return _posenc_cached(h, w, c, torch.device(device))
+def positional_encoding(h: int, w: int, c: int = C, device=device_mod.DEFAULT) -> torch.Tensor:
+    """Interleaved sine table [c, h, w] on `device`; group-k frequency
+    exp(-2k), 1-indexed (the exported 480x640 table to f32 rounding)."""
+    return _posenc_cached(h, w, c, device_mod.resolve(device))
 
 
 def _flatten_with_posenc(fmap):

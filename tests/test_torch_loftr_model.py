@@ -81,7 +81,7 @@ def test_weights_and_state():
 @pytest.mark.parametrize("hw", [(30, 40), (15, 20)])
 def test_positional_encoding(models, hw):
     jp, _ = models
-    got = pln.positional_encoding(*hw).numpy()
+    got = pln.positional_encoding(*hw, device="cpu").numpy()
     np.testing.assert_allclose(got, np.asarray(jln.positional_encoding(*hw)), rtol=0, atol=1e-6)
     if hw == (30, 40):  # the exported table
         assert np.abs(got - np.asarray(jp["posenc"])).max() < 1e-6
