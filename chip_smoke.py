@@ -97,6 +97,17 @@ line and raises if it fails:
                 match_frames, fine_refine's offsets bf16 against f32, and
                 CUDA-event times of encode, one pairwise
                 confidence_from_features and match_one_against_many at N = 8;
+ 14b. loftr_graphs — the LoFTR model calls through their CUDA graphs
+                (models/loftr_native.GraphCache): encode at [1,1,480,640] and
+                confidence_from_features at N = 1 and N = 3 (an expanded
+                query) replayed bit-equal to the eager bodies, capture and
+                replay under torch.cuda.set_sync_debug_mode("error"); a
+                returned tensor unchanged by a later replay with other
+                inputs; eager, captured, replayed on a key's first, second,
+                third call, and a cache of 2 evicting its least recently
+                used key; a counting wrapper patched over encode and
+                confidence_from_features called once per model call; device
+                ms and host us per call, eager body against graph;
  14a. onnx_oracle — the ONNX-graph interpreter (models/loftr.py), the golden
                 oracle of the native forward on the real export; here
                 (the export is not in the repo) tests/torch_onnx_graphs.py
@@ -1846,6 +1857,167 @@ MAX_ORACLE_ABS = 1e-5
 MIN_ORACLE_ARGMAX = 0.999
 ORACLE_CENSUS = {"Conv": 21, "MatMul": 65, "Elu": 16, "Softmax": 2}  # models/loftr.py:12-13
 ORACLE_WARM, ORACLE_TIMED = 2, 5  # forwards before the timed ones; timed forwards (median)
+
+
+def _graph_inputs(dev):
+    """tests/test_loftr.py's pair as two [1,1,480,640] model inputs on dev."""
+    a, b = loftr_pair()
+    x = torch.from_numpy(np.stack([a, b])[:, None] / 255.0).float().to(dev)
+    return x[:1], x[1:]
+
+
+def _same(got, want) -> bool:
+    return torch.equal(got, want) and got.stride() == want.stride()
+
+
+def _counted(model, fn) -> dict:
+    """fn()'s model calls by how they ran (GraphCache.counts differences)."""
+    before = dict(model.graphs.counts)
+    fn()
+    return {k: v - before[k] for k, v in model.graphs.counts.items() if v != before[k]}
+
+
+def loftr_graph_parity(dev) -> dict:
+    """A key's calls run eager, captured, replayed; each returns the eager
+    body's answer bit for bit: encode at [1,1,480,640], confidence at N = 1
+    and N = 3 with an expanded query. Capture and replay synchronize nothing."""
+    model = loftr_native.load_model(device=dev)
+    a, b = _graph_inputs(dev)
+    with torch.no_grad():
+        fa = loftr_native._encode_eager(model, a)
+        fb = loftr_native._encode_eager(model, b)
+    steps = {}
+    cases = [("encode", loftr_native.encode, loftr_native._encode_eager, (a,))]
+    for n in (1, 3):
+        cases.append((f"confidence_n{n}", loftr_native.confidence_from_features,
+                      loftr_native._confidence_eager,
+                      (fa.expand(n, -1, -1), torch.cat([fb, fa, fb][:n]))))
+    for name, public, body, args in cases:
+        with torch.no_grad():
+            want = body(model, *args)
+        runs = []
+        for i, action in enumerate(("eager", "capture", "replay", "replay")):
+            out = {}
+            if i:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = _counted(model, lambda: out.setdefault("y", public(model, *args)))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if got != {action: 1} or not _same(out["y"], want):
+                raise AssertionError(f"loftr_graphs {name} call {i}: {got}, "
+                                     f"max |d| {float((out['y'] - want).abs().max())}")
+            runs.append(action)
+        steps[name] = runs
+    return {"parity": steps, "graphs": model.graphs.n_graphs()}
+
+
+def loftr_graph_outputs_survive(dev) -> dict:
+    """A tensor a replay returned is unchanged by the next replay of the same
+    graph with other inputs, for both functions."""
+    model = loftr_native.load_model(device=dev)
+    a, b = _graph_inputs(dev)
+    for _ in range(2):
+        loftr_native.encode(model, a)
+    ea = loftr_native.encode(model, a)
+    keep = ea.clone()
+    eb = loftr_native.encode(model, b)
+    for _ in range(2):
+        loftr_native.confidence_from_features(model, ea, eb)
+    ca = loftr_native.confidence_from_features(model, ea, eb)
+    keep_c = ca.clone()
+    cb = loftr_native.confidence_from_features(model, eb, ea)
+    if model.graphs.counts != {"replay": 4, "capture": 2, "eager": 2}:
+        raise AssertionError(f"loftr_graphs survive: {model.graphs.counts}")
+    if not (_same(ea, keep) and _same(ca, keep_c)) or torch.equal(ea, eb) or torch.equal(ca, cb):
+        raise AssertionError("loftr_graphs: a later replay changed a returned tensor")
+    return {"survive": True}
+
+
+def loftr_graph_policy(dev) -> dict:
+    """Three encode shapes through a cache of 2: each key eager, captured,
+    replayed in turn, and the least recently used key evicted."""
+    model = loftr_native.load_model(device=dev)
+    model.graphs = loftr_native.GraphCache(cap=2)
+    gen = torch.Generator().manual_seed(5)
+    imgs = [torch.rand((1, 1, h, w), generator=gen).to(dev)
+            for h, w in ((480, 640), (240, 320), (160, 320))]
+    order = [0, 0, 0, 1, 1, 2, 0, 1]
+    want = ["eager", "capture", "replay", "eager", "capture", "eager", "eager", "eager"]
+    got, sizes = [], []
+    for i in order:
+        got.append(next(iter(_counted(model, lambda i=i: loftr_native.encode(model, imgs[i])))))
+        sizes.append((len(model.graphs), model.graphs.n_graphs()))
+    if got != want or max(n for n, _ in sizes) > 2:
+        raise AssertionError(f"loftr_graphs policy: {got} (want {want}), sizes {sizes}")
+    return {"policy": got, "cache_sizes": sizes}
+
+
+def loftr_graph_hooks(dev) -> dict:
+    """Counting wrappers patched over loftr_native.encode and
+    confidence_from_features (as the benchmark patches them) see every
+    model call once, captures included."""
+    model = loftr_native.load_model(device=dev)
+    a, b = _graph_inputs(dev)
+    calls = collections.Counter()
+    real_encode, real_conf = loftr_native.encode, loftr_native.confidence_from_features
+
+    def encode(m, img):
+        calls["encode"] += 1
+        return real_encode(m, img)
+
+    def conf(m, f0, f1):
+        calls["confidence"] += 1
+        return real_conf(m, f0, f1)
+
+    with mock.patch.object(loftr_native, "encode", encode), \
+            mock.patch.object(loftr_native, "confidence_from_features", conf):
+        for _ in range(4):
+            loftr_native.loftr_confidence(model, a, b)
+            f = loftr_native.encode(model, a)
+            loftr_native.match_one_against_many(model, f, torch.cat([f, f, f]), 64)
+    counts = model.graphs.counts
+    if (dict(calls) != {"encode": 8, "confidence": 8}
+            or counts != {"replay": 8, "capture": 4, "eager": 4}):
+        raise AssertionError(f"loftr_graphs hooks: wrappers {dict(calls)}, model {counts}")
+    return {"hook_calls": dict(calls)}
+
+
+def loftr_graph_times(dev) -> dict:
+    """Device ms (CUDA events) and host us to issue one call (50 calls
+    queued, then a synchronize), the eager body against the graph."""
+    model = loftr_native.load_model(device=dev)
+    a, _ = _graph_inputs(dev)
+    f = loftr_native.encode(model, a)
+    cases = {"encode": (loftr_native._encode_eager, loftr_native.encode, (a,)),
+             "confidence_n1": (loftr_native._confidence_eager,
+                               loftr_native.confidence_from_features, (f, f)),
+             "confidence_n5": (loftr_native._confidence_eager,
+                               loftr_native.confidence_from_features,
+                               (f.expand(5, -1, -1), torch.cat([f] * 5)))}
+    out = {}
+    for name, (body, public, args) in cases.items():
+        for how, fn in (("eager", body), ("graph", public)):
+            call = functools.partial(torch.no_grad()(fn), model, *args)
+            ms = _cuda_ms(call, warm=3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                call()
+            issue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            out[f"{name}_{how}_ms"] = ms
+            out[f"{name}_{how}_host_us"] = 1e6 * issue / 50
+    return out
+
+
+def check_loftr_graphs(dev) -> dict:
+    """Phase loftr_graphs (see the module docstring)."""
+    rec = {"phase": "loftr_graphs", "card": card(dev)}
+    for part in (loftr_graph_parity, loftr_graph_outputs_survive, loftr_graph_policy,
+                 loftr_graph_hooks, loftr_graph_times):
+        rec.update(part(dev))
+    return rec
 
 
 def onnx_oracle_phase(dev) -> dict:
@@ -4096,6 +4268,7 @@ def main(argv=None) -> int:
 
     # ---- the LoFTR matcher: model, System in three flows, B2 at 1200 slots ----
     _print(check_loftr_model(dev))
+    _print(check_loftr_graphs(dev))
     _print(onnx_oracle_phase(dev))
     loftr = loftr_system_phases(dev)
     quality = run_quality_loftr(dev)

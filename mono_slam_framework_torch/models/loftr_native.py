@@ -25,6 +25,17 @@ Architecture (as the JAX forward decodes it from the exported graph):
 pairwise transformer + head, batched over a leading axis, so one call
 matches a query against a stack of stored keyframe features.
 
+CUDA graphs. On a card the two functions above replay a CUDA graph of their
+eager bodies (`_encode_eager`, `_confidence_eager`): the graph issues their
+~130 / ~556 small ops in one launch where Python would issue them one by one.
+A model keeps its graphs in `LoftrCoarse.graphs` (`GraphCache`), keyed by the
+device, the inputs' shapes, strides and dtypes and the product precision; a
+key runs eagerly the first time it is seen, is captured the second time and
+replayed from the third, so a shape seen once never costs a capture. Inputs
+are copied into the graph's static buffers and the output is copied out, so
+a returned tensor outlives every later replay. The arithmetic and its order
+are the eager body's. On the CPU the bodies run as they are.
+
 Precision, per device. The JAX package computes the convolutions, the
 attention and MLP products, the similarity and the fine correlation under
 `jax.default_matmul_precision("bfloat16")`: one bf16 pass with an f32
@@ -37,8 +48,10 @@ TPU's f32-output pass does not), on the CPU they stay f32. Everything else
 
 from __future__ import annotations
 
+import collections
 import functools
 import pathlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -145,15 +158,87 @@ class EncoderLayer(nn.Module):
 
 LAYER_NAMES = ("self", "cross", "self", "cross")
 
+GRAPH_CAP = 16  # keys a model remembers, graphs and keys seen once alike
+
+
+class Graph(NamedTuple):
+    """A captured model call: replaying `graph` reads `inputs` and writes
+    `output`."""
+
+    graph: object  # torch.cuda.CUDAGraph
+    inputs: tuple
+    output: torch.Tensor
+
+
+class GraphCache:
+    """A model's CUDA graphs and how its calls ran.
+
+    `lookup(key)` says how a call with `key` runs: "eager" the first time
+    the key is seen, "capture" the second, "replay" (with its `Graph`) from
+    the third on. At most `cap` keys are kept, graphs and keys seen once
+    alike; the least recently used goes first. `counts` adds up the calls
+    by how they ran. All graphs share one memory pool (`pool`): they replay
+    one after another on the current stream, and each call copies its
+    output out before the next replay."""
+
+    def __init__(self, cap: int = GRAPH_CAP):
+        self.cap = cap
+        self.counts = {"replay": 0, "capture": 0, "eager": 0}
+        self.pool = None  # torch.cuda.graph_pool_handle(), made at the first capture
+        self.streams: dict = {}  # device -> the stream graphs are captured on
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def n_graphs(self) -> int:
+        return sum(g is not None for g in self._entries.values())
+
+    def lookup(self, key) -> tuple:
+        """("eager" | "capture" | "replay", the Graph or None); counts it."""
+        if key not in self._entries:
+            self._entries[key] = None
+            self._evict()
+            action, graph = "eager", None
+        else:
+            self._entries.move_to_end(key)
+            graph = self._entries[key]
+            action = "capture" if graph is None else "replay"
+        self.counts[action] += 1
+        return action, graph
+
+    def store(self, key, graph: Graph) -> None:
+        self._entries[key] = graph
+        self._entries.move_to_end(key)
+        self._evict()
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def _evict(self) -> None:
+        while len(self._entries) > self.cap:
+            self._entries.popitem(last=False)
+
+    def __deepcopy__(self, memo):
+        # a copy of the model has other parameters: its graphs are its own
+        return GraphCache(self.cap)
+
 
 class LoftrCoarse(nn.Module):
     """The coarse LoFTR model's parameters; the forward is the functions
-    below (`encode`, `confidence_from_features`, ...)."""
+    below (`encode`, `confidence_from_features`, ...). `graphs` holds the
+    CUDA graphs of its calls on a card."""
 
     def __init__(self):
         super().__init__()
         self.backbone = Backbone()
         self.layers = nn.ModuleList([EncoderLayer() for _ in LAYER_NAMES])
+        self.graphs = GraphCache()
+
+    def _apply(self, fn, recurse=True):
+        # a graph reads the parameters where they lay when it was captured
+        self.graphs.clear()
+        return super()._apply(fn, recurse)
 
 
 def load_model(path=None, device=device_mod.DEFAULT) -> LoftrCoarse:
@@ -197,12 +282,63 @@ def _flatten_with_posenc(fmap):
     return fmap.reshape(b, c, h * w).transpose(1, 2)
 
 
+def _capture(body, model: LoftrCoarse, inputs: tuple) -> Graph:
+    """A CUDA graph of body(model, *static copies of inputs), captured on a
+    side stream into the model's pool. The key's eager call before it chose
+    the cuDNN and cuBLAS algorithms and built the positional table."""
+    cache = model.graphs
+    device = inputs[0].device
+    static = tuple(torch.empty_like(t).copy_(t) for t in inputs)  # an expanded input materialises
+    if cache.pool is None:
+        cache.pool = torch.cuda.graph_pool_handle()
+    stream = cache.streams.get(device)
+    if stream is None:
+        stream = cache.streams[device] = torch.cuda.Stream(device)
+    graph = torch.cuda.CUDAGraph()
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        # thread-local: another thread's CUDA work (the start-up warm) goes on
+        graph.capture_begin(pool=cache.pool, capture_error_mode="thread_local")
+        try:
+            output = body(model, *static)
+        finally:
+            graph.capture_end()
+    current.wait_stream(stream)
+    return Graph(graph, static, output)
+
+
+def _call(body, model: LoftrCoarse, *inputs) -> torch.Tensor:
+    """body(model, *inputs): on the CPU as it is; on a card eagerly, by a
+    capture or by a replay, as the model's GraphCache says."""
+    if not inputs[0].is_cuda:
+        model.graphs.counts["eager"] += 1
+        return body(model, *inputs)
+    # _lowp: a patched operand precision (f32 on the card) is another graph
+    key = (body, inputs[0].device, _lowp, *((t.shape, t.stride(), t.dtype) for t in inputs))
+    action, graph = model.graphs.lookup(key)
+    if action == "eager":
+        return body(model, *inputs)
+    if action == "capture":
+        graph = _capture(body, model, inputs)
+        model.graphs.store(key, graph)
+    else:
+        for s, t in zip(graph.inputs, inputs):
+            s.copy_(t)
+    graph.graph.replay()
+    return graph.output.clone()  # the next replay overwrites graph.output
+
+
+def _encode_eager(model: LoftrCoarse, img) -> torch.Tensor:
+    return _flatten_with_posenc(model.backbone(img)[0])
+
+
 @torch.no_grad()
 def encode(model: LoftrCoarse, img) -> torch.Tensor:
     """Backbone + positional encoding, flattened: [B,1,H,W] (in [0, 1]) ->
     [B, L, C], row-major over (y, x) (the matcher's cell decode,
     dnnfeaturematcher.cpp:75-100: x = cell % grid_w, y = cell // grid_w)."""
-    return _flatten_with_posenc(model.backbone(img)[0])
+    return _call(_encode_eager, model, img)
 
 
 @torch.no_grad()
@@ -248,13 +384,17 @@ def coarse_transformer(model: LoftrCoarse, f0, f1):
     return f0, f1
 
 
-@torch.no_grad()
-def confidence_from_features(model: LoftrCoarse, f0, f1) -> torch.Tensor:
-    """Pairwise transformer + dual-softmax head: [B,L,C] x2 -> [B,L,L]."""
+def _confidence_eager(model: LoftrCoarse, f0, f1) -> torch.Tensor:
     f0, f1 = coarse_transformer(model, f0, f1)
     scale = 1.0 / np.sqrt(float(C))
     sim = _mm(f0 * scale, (f1 * scale).transpose(1, 2)) / TEMPERATURE
     return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+@torch.no_grad()
+def confidence_from_features(model: LoftrCoarse, f0, f1) -> torch.Tensor:
+    """Pairwise transformer + dual-softmax head: [B,L,C] x2 -> [B,L,L]."""
+    return _call(_confidence_eager, model, f0, f1)
 
 
 @torch.no_grad()

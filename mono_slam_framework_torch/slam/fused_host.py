@@ -42,8 +42,10 @@ def pipe_stats(tracker) -> dict:
     inlier floor, `skip_*` = why no dispatch happened after a frame. Added
     here: `done_*` = frames completed by run_steady / run / the host path,
     `fallback_*` / `run_fallback_*` = why run_steady / run returned None,
-    `ctx_builds` = local-map contexts built. The pipelined mode adds
-    `process_samples_ms` / `dispatch_samples_ms` (slam/system.py)."""
+    `ctx_builds` = local-map contexts built, `loftr_graph_replay` /
+    `loftr_graph_capture` / `loftr_eager` = the fused LoFTR step's model
+    calls by how they ran (models/loftr_native.GraphCache). The pipelined
+    mode adds `process_samples_ms` / `dispatch_samples_ms` (slam/system.py)."""
     s = getattr(tracker, "_pipe_stats", None)
     if s is None:
         s = {"dispatch": 0, "hit": 0}

@@ -245,6 +245,23 @@ def steady_step_loftr(
 # host side
 
 
+# pipe_stats keys of the step's model calls, by how they ran (GraphCache.counts)
+MODEL_CALL_KEYS = {"replay": "loftr_graph_replay", "capture": "loftr_graph_capture",
+                   "eager": "loftr_eager"}
+
+
+def _steady_step_counted(tracker, *args):
+    """steady_step_loftr(*args), adding the matcher model's calls to
+    pipe_stats by how they ran: replayed CUDA graphs, captures, eager."""
+    model = tracker.matcher.model
+    before = dict(model.graphs.counts)
+    result = steady_step_loftr(*args)
+    stats = fused_host.pipe_stats(tracker)
+    for k, key in MODEL_CALL_KEYS.items():
+        stats[key] = stats.get(key, 0) + model.graphs.counts[k] - before[k]
+    return result
+
+
 def applicable(tracker) -> bool:
     """Fused-LoFTR preconditions: steady OK-state motion-model tracking with
     the LoFTR matcher in its coarse (fine=False) configuration."""
@@ -441,8 +458,8 @@ def run_steady(tracker) -> bool | None:
 
     f_prev, _ = m._features(tracker.last_frame)
     prev_cellrow, ext = _prev_cellrow(tracker, ctx, tables)
-    f_cur, out, union_row, T2 = steady_step_loftr(
-        img_d, m.model, f_prev,
+    f_cur, out, union_row, T2 = _steady_step_counted(
+        tracker, img_d, m.model, f_prev,
         fused_host._upload(tracker, prev_cellrow),
         fused_host._mp_pos_for(tracker, ctx, ext),
         fused_host._upload(tracker, T_init),
@@ -665,8 +682,8 @@ def dispatch_prepared(tracker, prep) -> dict:
     fused_host.count(tracker, "dispatch")
     m = tracker.matcher
     ctx = prep["ctx"]
-    f_cur, out, union_row, T2 = steady_step_loftr(
-        prep["img_d"], m.model, prep["f_prev"], prep["cellrow_d"], prep["mp_pos_d"],
+    f_cur, out, union_row, T2 = _steady_step_counted(
+        tracker, prep["img_d"], m.model, prep["f_prev"], prep["cellrow_d"], prep["mp_pos_d"],
         fused_tracking.chain_T_init(prep["T2_d"],
                                     fused_host._upload(tracker, prep["T_prev_host"])),
         ctx["kf_feats"], ctx["kf_cellrow"], ctx["first_slot_d"], ctx["normal_d"],

@@ -159,3 +159,21 @@ def test_fine_refine(models, pair):
     got = pln.fine_refine(_t(fine[0]), _t(fine[1]), _t(cell0), _t(cell1)).numpy()
     assert got.shape == (64, 2) and np.abs(got).max() <= 8.0
     assert np.abs(got - ref).max() < 1e-4
+
+
+def test_repeated_calls_stay_eager_on_the_cpu(pair, feats):
+    """On the CPU every call runs the eager body, never a CUDA graph: the
+    third call of a shape keeps test_encode's and test_confidence_and_topk's
+    bounds against the JAX functions, and every call counts as eager."""
+    jp = jln.load_params()
+    model = pln.load_model(device="cpu")
+    f0, f1 = feats[:1], feats[1:]
+    ref_e = np.asarray(jln.encode(jp, jnp.asarray(pair[:1])))
+    ref_c = np.asarray(jln.confidence_from_features(jp, jnp.asarray(f0), jnp.asarray(f1)))
+    for _ in range(3):
+        assert np.abs(pln.encode(model, _t(pair[:1])).numpy() - ref_e).max() < 5e-5
+        got = pln.confidence_from_features(model, _t(f0), _t(f1)).numpy()
+        assert np.abs(got - ref_c).max() < 1e-5
+        assert (got[0].argmax(-1) == ref_c[0].argmax(-1)).mean() > 0.999
+    assert model.graphs.counts == {"replay": 0, "capture": 0, "eager": 6}
+    assert len(model.graphs) == 0

@@ -115,6 +115,10 @@ def test_fused_steady_matches_unfused(tmp_path):
     assert sys_f.map.n_keyframes() >= 2
     stats = fused_host.pipe_stats(sys_f.tracker)
     assert stats.get("done_steady", 0) >= 3, stats
+    # each steady step's three model calls (encode, two confidences) run
+    # eagerly on the CPU: no CUDA graph
+    assert stats["loftr_eager"] >= 3 * stats["done_steady"] and stats["loftr_eager"] % 3 == 0
+    assert stats["loftr_graph_replay"] == stats["loftr_graph_capture"] == 0, stats
     assert "done_steady" not in fused_host.pipe_stats(sys_u.tracker)
     ate_pair, n = trajectory.ate_rmse(*_tum(sys_f, tmp_path, "f"), *tum_u)
     assert n >= 5
