@@ -1,4 +1,5 @@
-"""The yardstick: peaks of the card and the work of the kernels and the model.
+"""The yardstick: peaks of the card and the work of the kernels. A model's
+work is its own file, `work/<name>.py`, named by the configuration.
 
 Frozen copies, so that an edit of the program or of `chip_smoke.py` cannot
 move them:
@@ -76,39 +77,3 @@ def hamming_ops(n_pairs: int, k1: int, k2: int, bits: int = 256) -> float:
     """The distance GEMM of `ops/hamming.py` ([K1, 256] x [256, K2] per set
     pair, bf16 operands): 2 operations per product term."""
     return 2.0 * n_pairs * k1 * k2 * bits
-
-
-# -- the LoFTR coarse model (models/loftr_native.py), in products only -------
-
-LOFTR_C = 32
-LOFTR_BACKBONE = (  # (cin, cout, kernel, stride) in order, as Backbone builds it
-    (1, 8, 7, 2),
-    (8, 8, 3, 1), (8, 8, 3, 1), (8, 8, 3, 1), (8, 8, 3, 1),
-    (8, 16, 3, 2), (16, 16, 3, 1), (8, 16, 1, 2), (16, 16, 3, 1), (16, 16, 3, 1),
-    (16, 32, 3, 2), (32, 32, 3, 1), (16, 32, 1, 2), (32, 32, 3, 1), (32, 32, 3, 1),
-    (32, 32, 3, 2), (32, 32, 3, 1), (32, 32, 1, 2), (32, 32, 3, 1), (32, 32, 3, 1),
-    (32, 32, 1, 1),
-)
-
-
-def loftr_encode_flops(h: int = 480, w: int = 640) -> float:
-    """Products of one image's backbone (2 per multiply-add). The stride-2
-    entries halve the grid the convolutions after them run on; a 1x1
-    `down` runs on the block's output grid."""
-    total = 0.0
-    hh, ww = h, w
-    for cin, cout, k, stride in LOFTR_BACKBONE:
-        if stride == 2 and k != 1:
-            hh, ww = -(-hh // 2), -(-ww // 2)
-        total += 2.0 * cin * cout * k * k * hh * ww
-    return total
-
-
-def loftr_pair_flops(n_cells: int = 1200) -> float:
-    """Products of one pair through the 4 encoder layers (each applied to
-    both feature sets) and the similarity: q, k, v, merge (4 L C^2), kv
-    (L C^2), the normalizer (L C), the message (L C^2), the MLP (L (2C)^2 +
-    L 2C C), each times 2; then the L x L x C similarity."""
-    L, c = n_cells, LOFTR_C
-    per_apply = 2.0 * (4 * L * c * c + L * c * c + L * c + L * c * c + L * 4 * c * c + L * 2 * c * c)
-    return 4 * 2 * per_apply + 2.0 * L * L * c

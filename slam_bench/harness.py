@@ -27,21 +27,20 @@ import numpy as np
 import torch
 
 from slam_bench import compare, manifest, trace, world
-from slam_bench.reference import loftr as ref_loftr
 
 T_IMPORT = time.perf_counter()
 
 
 def process_age_s() -> float:
     """Seconds since this process started (Linux), else since this module
-    was imported."""
+    was imported. Now is read from CLOCK_BOOTTIME, the clock the kernel
+    counts a process's start ticks on, to the nanosecond: only the start
+    keeps the tick's grain."""
     try:
         with open("/proc/self/stat") as f:
             start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
-        with open("/proc/uptime") as f:
-            uptime = float(f.read().split()[0])
-        return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
-    except (OSError, ValueError, IndexError):
+        return time.clock_gettime(time.CLOCK_BOOTTIME) - start_ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError, AttributeError):
         return time.perf_counter() - T_IMPORT
 
 
@@ -104,6 +103,8 @@ class Run:
     hooks: object  # port.Hooks: launch shapes, LoFTR calls, Hamming shapes, keyframes
     trace: trace.TraceSummary | None
     b2_valid: list = field(default_factory=list)  # valid edges per B2 launch
+    config: dict = field(default_factory=dict)  # the configuration as run (overrides merged)
+    cell: dict = field(default_factory=dict)  # the workload entry
 
 
 @dataclass
@@ -137,12 +138,11 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
     config = _deep_update(manifest.load_json(manifest.config_file(cell["config"])), overrides.get("config"))
     spec = _deep_update(manifest.load_json(manifest.traffic_file(cell["traffic"])), overrides.get("traffic"))
     limits = _deep_update(manifest.load_json(manifest.limits_file(cell["name"])), overrides.get("limits"))
-    # the cell's limits name its checks: pose, b1, ham, conf
-    checks = [c for c in compare.CHECKS if f"{c}_checked" in limits]
+    # the cell's limits name its checks: <name>_checked -> checks/<name>.py
+    checks = {name: manifest.check_module(name) for name in manifest.check_names(limits)}
     traffic = Traffic(spec, config, seed, device)
     driver = manifest.driver_class(spec["driver"])(manifest.ROOT, config, traffic, device)
-    hooks = port.Hooks(capture_b1="b1" in checks, capture_ham="ham" in checks,
-                       capture_conf="conf" in checks)
+    hooks = port.Hooks(checks)
     initialized = [False] * traffic.streams
     # (stream, reset count, reported pose, rendered pose) of each frame of
     # the window the tracker reports as tracked
@@ -208,7 +208,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
                         op_failed = exc
                         errors.append(repr(exc)[:300])
                     t_end = time.perf_counter()
-                    solves, b1, ham, conf = hooks.end()
+                    kept = hooks.end()
                     frame_ms.extend([(t_end - t_op) * 1e3] * n_frames)
                     attempted += n_frames
                     if op_failed is not None:
@@ -219,11 +219,8 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
                         failed += f
                         if sampled:
                             n_sampled += 1
-                            records.append({
-                                "op": i, "frames": frames, "solves": solves, "b1": b1, "ham": ham,
-                                "conf": conf,
-                                "conf_images": (traffic.image(0, i), traffic.image(0, i - 1)) if conf else None,
-                            })
+                            records.append({"op": i, "frames": frames, "kept": kept,
+                                            "images": (traffic.image(0, i), traffic.image(0, i - 1))})
                     ops += 1
                     i += 1
                     if t_end - t0 >= seconds:
@@ -242,7 +239,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
     counters = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1}
     frames_done = attempted - raised
     run = Run(frames=attempted, ops=ops, window_s=window_s, counters=counters, hooks=hooks,
-              trace=summary, b2_valid=b2_valid)
+              trace=summary, b2_valid=b2_valid, config=config, cell=cell)
     info = {"ops": ops, "resets": driver.resets, "sampled_ops": len(records),
             "keyframes_created": hooks.keyframes_created,
             "fused_steady": counters.get("pipe.done_steady", 0), "first_op": spec["setup_frames"],
@@ -252,11 +249,8 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    weights = None
-    if "conf" in checks:
-        weights = ref_loftr.load_weights(manifest.ROOT / config["weights"], device)
     t_judge = time.perf_counter()
-    numbers, ctrl = compare.judge(records, checks, weights, control)
+    numbers, ctrl = compare.judge(records, checks, config, control)
     info.update(compare.judge_ate(track))
     # a frame left not OK after its stream had initialized is a lost answer
     numbers["frames_lost"] = failed

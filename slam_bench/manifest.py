@@ -3,10 +3,13 @@
 A configuration is `configs/<config>.json`, a traffic mix
 `traffic/<traffic>.json`, the entry point a mix drives `drivers/<driver>.py`
 (named by the mix's `"driver"`; a class `Driver`), a per-layer metric
-`metrics/<name>.py` (a module with `read(run) -> float | None`), and a
-cell's limits of `correct` `limits/<cell>.json` (each number's readings
-differ by configuration and mix), all beside this file. Adding one is
-adding its file and its entry in the manifest.
+`metrics/<name>.py` (a module with `read(run) -> float | None`), a cell's
+limits of `correct` `limits/<cell>.json` (each number's readings differ by
+configuration and mix), a check `checks/<name>.py` (named by a
+`<name>_checked` key of the limits; see `port.Hooks` and `compare.judge`),
+and a model's work `work/<name>.py` (named by the configuration's
+`"model_work"`; a module with `flops(hooks) -> float`), all beside this
+file. Adding one is adding its file and its entry in the manifest.
 """
 
 from __future__ import annotations
@@ -50,6 +53,14 @@ def driver_file(name: str) -> pathlib.Path:
     return HERE / "drivers" / f"{name}.py"
 
 
+def check_file(name: str) -> pathlib.Path:
+    return HERE / "checks" / f"{name}.py"
+
+
+def work_file(name: str) -> pathlib.Path:
+    return HERE / "work" / f"{name}.py"
+
+
 def load_json(path: pathlib.Path) -> dict:
     return json.loads(path.read_text())
 
@@ -69,6 +80,28 @@ def metric_reader(name: str):
 def driver_class(name: str):
     """The `Driver` class of drivers/<name>.py."""
     return _load("driver", name, driver_file(name)).Driver
+
+
+def check_names(limits: dict) -> list[str]:
+    """The checks a cell's limits name, in the file's order: each
+    `<name>_checked` key names checks/<name>.py."""
+    return [k[: -len("_checked")] for k in limits if k.endswith("_checked")]
+
+
+def check_module(name: str):
+    """checks/<name>.py, a module with `NUMBERS` (the numbers it reports),
+    `wrappers(op)` and `judge(records, config, control)`."""
+    path = check_file(name)
+    if not path.is_file():
+        raise ValueError(f"unknown check {name!r}: no {path}")
+    return _load("check", name, path)
+
+
+def model_work(config: dict):
+    """The work file the configuration's `"model_work"` names, or None
+    where it names none (a configuration without a model)."""
+    name = config.get("model_work")
+    return None if name is None else _load("work", name, work_file(name))
 
 
 def metrics_for(manifest: dict, cell: str, kind: str) -> list[dict]:

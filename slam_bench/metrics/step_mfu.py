@@ -2,10 +2,11 @@
 the least time the card needs at its published peaks for the work the
 window's steps did, over the window's wall time. The work counted: kernel
 B1's and B2's operations (f32 peak), the Hamming distance GEMMs and the
-LoFTR model's products (bf16 peak). It bounds every kernel's roofline
-share from above as long as that kernel's work is counted here."""
+model's products as the configuration's work file counts them (bf16
+peak). It bounds every kernel's roofline share from above as long as that
+kernel's work is counted here."""
 
-from slam_bench import bounds
+from slam_bench import bounds, manifest
 
 
 def read(run):
@@ -15,7 +16,9 @@ def read(run):
     f32 = sum(bounds.b1_ops(dims, streams) for dims, streams in h.launch_b1)
     f32 += sum(bounds.b2_ops(valid) for valid in run.b2_valid)
     bf16 = sum(bounds.hamming_ops(p, k1, k2) for p, k1, k2 in h.hamming_shapes)
-    bf16 += h.loftr_encode_images * bounds.loftr_encode_flops() + h.loftr_pairs * bounds.loftr_pair_flops()
+    work = manifest.model_work(run.config)
+    if work is not None:
+        bf16 += work.flops(h)
     if not (f32 or bf16):
         return None
     least_s = f32 / bounds.PEAK_F32_FLOPS + bf16 / bounds.PEAK_BF16_FLOPS

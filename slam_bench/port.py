@@ -6,23 +6,27 @@ after each frame, and reads its counters. It also wraps a few of the
 program's public module functions and System methods for the length of a
 run, from the benchmark's side:
 
-* `Hooks` sees every pose LM (`pose_opt.pose_optimize[_batched]`, kernel B2
-  on a card), detection (`detect.detect_maps[_batch]`, kernel B1), Hamming
-  distance matrix (`hamming.distance_matrix`), LoFTR confidence and encode
-  (`loftr_native.confidence_from_features`, `encode`) and fused steady step
-  (`fused_host.run_steady`, `fused_loftr.run_steady`). On the operations
-  the harness samples it keeps copies of the inputs and outputs (device
-  copies, no synchronization) for the comparison after the window; in a
-  traced run it also records each launch's shapes (B2's valid-edge mask is
-  kept and counted after the window), the LoFTR calls' batch sizes, and a
-  `torch.profiler.record_function` span around each stage call. A change
-  to the program that renames these functions or moves the work out of
-  them leaves the comparison with nothing to compare, and `correct` false.
+* `Hooks` records, in a traced run, each launch's shapes of kernels B1
+  (`detect.detect_maps[_batch]`) and B2 (`pose_opt.pose_optimize[_batched]`;
+  B2's valid-edge mask is kept and counted after the window), the shapes of
+  the Hamming distance matrices (`hamming.distance_matrix`) and of the
+  LoFTR calls (`loftr_native.encode`: (images, height, width);
+  `confidence_from_features`: (pairs, tokens)), which the work files count,
+  and a `torch.profiler.record_function` span around each stage call
+  (`fused_host.run_steady`, `fused_loftr.run_steady` and the System's
+  stages). It also installs the wrappers of the checks a cell's limits
+  name (`checks/<name>.py`): on the operations the harness samples they
+  keep copies of the inputs and outputs of the program's functions
+  (device copies, no synchronization) for the comparison after the window.
+  A change to the program that renames these functions or moves the work
+  out of them leaves the comparison with nothing to compare, and `correct`
+  false.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 
 import numpy as np
 import torch
@@ -37,10 +41,6 @@ from mono_slam_framework_torch.slam.frame import reset_frame_ids
 from mono_slam_framework_torch.slam.map_model import reset_map_ids
 
 OK = "OK"
-# the Hamming answers kept on a sampled operation: its first HAM_CALLS
-# matrices, every 16th query row of each
-HAM_CALLS = 2
-HAM_ROWS = slice(None, None, 16)
 
 
 def weights_path(root, config: dict):
@@ -115,31 +115,46 @@ def counters(systems) -> dict:
     return out
 
 
-def _clone(x):
-    return None if x is None else x.detach().clone()
+class OpView:
+    """What one check's wrappers see of the operation under way: whether
+    the harness samples it (`sampled`), whether it is one of the sampled
+    operations that the costlier captures are taken on (`heavy`: every
+    `b1_sample_every`-th of the mix), and what the check has kept on it so
+    far (`kept`, a list the wrappers append to)."""
+
+    def __init__(self, hooks: "Hooks", name: str):
+        self._hooks, self._name = hooks, name
+
+    @property
+    def sampled(self) -> bool:
+        return self._hooks.sampling
+
+    @property
+    def heavy(self) -> bool:
+        return self._hooks.heavy
+
+    @property
+    def kept(self) -> list:
+        return self._hooks.kept[self._name]
 
 
 class Hooks:
     """Wraps the program's module functions for one run (see the module
-    docstring). `sampling` is set by the harness around a sampled
-    operation; `tracing` for the whole traced window."""
+    docstring). `checks` maps each check's name to its module, whose
+    `wrappers(op)` gives `{"package.module:function": make}` with
+    `make(real) -> wrapped`. `sampling` and `heavy` are set by the harness
+    around a sampled operation; `tracing` for the whole traced window."""
 
-    def __init__(self, capture_b1: bool, capture_ham: bool, capture_conf: bool):
-        self.capture_b1 = capture_b1
-        self.capture_ham = capture_ham
-        self.capture_conf = capture_conf
+    def __init__(self, checks: dict):
+        self.checks = checks
         self.sampling = False
-        self.take_b1 = False
+        self.heavy = False
         self.tracing = False
-        self.solves: list = []  # this operation's pose LMs: (inputs, outputs)
-        self.b1: list = []  # this operation's detections: (stack, dims, threshold, border, maps)
-        self.ham: list = []  # this operation's Hamming matrices: (desc1, desc2, valid1, valid2, d) on HAM_ROWS
-        self.conf: list = []  # this operation's motion-phase LoFTR confidences
-        self.in_loftr_steady = False
+        self.kept: dict = {name: [] for name in checks}  # this operation's captures, by check
         self.launch_b1: list = []  # (dims, n_streams) per B1 launch on a card
         self.launch_b2: list = []  # (E, B, valid) per B2 launch on a card
-        self.loftr_encode_images = 0
-        self.loftr_pairs = 0
+        self.loftr_encodes: list = []  # (images, height, width) per LoFTR encode
+        self.loftr_confidences: list = []  # (pairs, tokens) per LoFTR confidence call
         self.hamming_shapes: list = []  # (pairs of sets, K1, K2)
         self.keyframes_created = 0
         self._undo: list = []
@@ -159,13 +174,17 @@ class Hooks:
         self._patch(loftr_native, "encode", self._encode)
         self._patch(hamming, "distance_matrix", self._hamming)
         self._patch(fused_host, "run_steady", self._span("fused.run_steady"))
-        self._patch(fused_loftr, "run_steady", self._loftr_steady)
+        self._patch(fused_loftr, "run_steady", self._span("fused_loftr.run_steady"))
         for s in systems:
             self._patch(s.tracker, "grab_image_monocular", self._span("tracking"))
             self._patch(s.tracker, "create_new_keyframe", self._new_keyframe)
             self._patch(s.local_mapper, "run", self._span("local_mapping"))
             self._patch(s.loop_closer, "run", self._span("loop_closing"))
             self._patch(s.map_drawer, "update", self._span("map_drawer"))
+        for name, check in self.checks.items():
+            for target, make in check.wrappers(OpView(self, name)).items():
+                module, function = target.split(":")
+                self._patch(importlib.import_module(module), function, make)
 
     def uninstall(self) -> None:
         for owner, name, real in reversed(self._undo):
@@ -173,13 +192,13 @@ class Hooks:
         self._undo.clear()
 
     # -- per operation -------------------------------------------------------
-    def begin(self, sampled: bool, take_b1: bool) -> None:
-        self.sampling, self.take_b1 = sampled, take_b1
-        self.solves, self.b1, self.ham, self.conf = [], [], [], []
+    def begin(self, sampled: bool, heavy: bool) -> None:
+        self.sampling, self.heavy = sampled, heavy
+        self.kept = {name: [] for name in self.checks}
 
-    def end(self) -> tuple:
+    def end(self) -> dict:
         self.sampling = False
-        return self.solves, self.b1, self.ham, self.conf
+        return self.kept
 
     # -- wrappers ------------------------------------------------------------
     def _span(self, name):
@@ -202,14 +221,6 @@ class Hooks:
         def make(real):
             def wrapped(T_init, Xw, uv, valid, K, info=None):
                 out = real(T_init, Xw, uv, valid, K, info)
-                if self.sampling:
-                    args = (T_init, Xw, uv, valid, K, info)
-                    if not batched:
-                        args = tuple(None if a is None else a[None] for a in args)
-                        res = tuple(o[None] for o in out)
-                    else:
-                        res = out
-                    self.solves.append((tuple(_clone(a) for a in args), tuple(_clone(o) for o in res)))
                 if self.tracing and Xw.is_cuda:
                     self.launch_b2.append((Xw.shape[-2], Xw.shape[0] if batched else 1, valid))
                 return out
@@ -220,11 +231,6 @@ class Hooks:
         def make(real):
             def wrapped(stack, dims, threshold=20.0, border=31):
                 maps = real(stack, dims, threshold, border)
-                if self.sampling and self.take_b1 and self.capture_b1:
-                    s = stack if batched else stack[None]
-                    m = tuple(x if batched else x[None] for x in maps)
-                    self.b1.append((_clone(s), tuple(tuple(d) for d in dims), float(threshold),
-                                    int(border), tuple(_clone(x) for x in m)))
                 if self.tracing and stack.is_cuda:
                     self.launch_b1.append((tuple(tuple(int(v) for v in d) for d in dims),
                                            stack.shape[0] if batched else 1))
@@ -232,43 +238,23 @@ class Hooks:
             return wrapped
         return make
 
-    def _loftr_steady(self, real):
-        span = self._span("fused_loftr.run_steady")(real)
-
-        def wrapped(*a, **k):
-            self.in_loftr_steady = True
-            try:
-                return span(*a, **k)
-            finally:
-                self.in_loftr_steady = False
-        return wrapped
-
     def _confidence(self, real):
         def wrapped(model, f0, f1):
-            conf = real(model, f0, f1)
             if self.tracing:
-                self.loftr_pairs += f0.shape[0]
-            # the first single-pair confidence of a steady frame is its
-            # motion phase: the current frame against the last one
-            if (self.sampling and self.capture_conf and self.in_loftr_steady
-                    and f0.shape[0] == 1 and not self.conf):
-                self.conf.append(_clone(conf[0]))
-            return conf
+                self.loftr_confidences.append((int(f0.shape[0]), int(f0.shape[1])))
+            return real(model, f0, f1)
         return wrapped
 
     def _encode(self, real):
         def wrapped(model, img):
             if self.tracing:
-                self.loftr_encode_images += img.shape[0]
+                self.loftr_encodes.append((int(img.shape[0]), int(img.shape[-2]), int(img.shape[-1])))
             return real(model, img)
         return wrapped
 
     def _hamming(self, real):
         def wrapped(desc1, desc2, valid1, valid2):
             d = real(desc1, desc2, valid1, valid2)
-            if self.sampling and self.take_b1 and self.capture_ham and len(self.ham) < HAM_CALLS:
-                self.ham.append((_clone(desc1[..., HAM_ROWS, :]), _clone(desc2),
-                                 _clone(valid1[..., HAM_ROWS]), _clone(valid2), _clone(d[..., HAM_ROWS, :])))
             if self.tracing and d.is_cuda:
                 k1, k2 = d.shape[-2], d.shape[-1]
                 self.hamming_shapes.append((int(np.prod(d.shape[:-2])) if d.dim() > 2 else 1, k1, k2))

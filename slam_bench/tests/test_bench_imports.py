@@ -32,6 +32,8 @@ def test_harness_loads_no_jax():
             "from slam_bench import manifest\n"
             "for p in (manifest.HERE / 'metrics').glob('*.py'): manifest.metric_reader(p.stem)\n"
             "for p in (manifest.HERE / 'drivers').glob('*.py'): manifest.driver_class(p.stem)\n"
+            "for p in (manifest.HERE / 'checks').glob('*.py'): manifest.check_module(p.stem)\n"
+            "for p in (manifest.HERE / 'work').glob('*.py'): manifest.model_work({'model_work': p.stem})\n"
             "from slam_bench.run import forbidden_modules\n"
             "print(forbidden_modules())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=HERE.parent, capture_output=True, text=True,

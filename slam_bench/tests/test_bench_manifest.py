@@ -96,15 +96,21 @@ def test_every_cell_resolves_its_files(cell):
     assert config["name"] == w["config"]
     assert callable(manifest.driver_class(traffic["driver"]))
     limits = manifest.load_json(manifest.limits_file(cell))
-    numbers = {"pose": ("pose_checked", "pose_unmatched", "pose_px"),
-               "b1": ("b1_checked", "b1_gap", "b1_flips"), "ham": ("ham_checked", "ham_wrong"),
-               "conf": ("conf_checked", "conf_gap")}
-    checks = [c for c in numbers if f"{c}_checked" in limits]
+    checks = {name: manifest.check_module(name) for name in manifest.check_names(limits)}
     assert "pose" in checks
-    assert set(limits) == {n for c in checks for n in numbers[c]} | {"frames_lost"}
+    assert set(limits) == {n for c in checks.values() for n in c.NUMBERS} | {"frames_lost"}
     assert limits["frames_lost"] == {"max": 0}
+    for check in checks.values():
+        assert callable(check.wrappers) and callable(check.judge)
+    if "model_work" in config:
+        assert callable(manifest.model_work(config).flops)
     for m in manifest.metrics_for(BENCH, cell, "per_layer"):
         assert callable(manifest.metric_reader(m["name"]))
+
+
+def test_unknown_check_raises():
+    with pytest.raises(ValueError, match="unknown check 'nope'"):
+        manifest.check_module("nope")
 
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
